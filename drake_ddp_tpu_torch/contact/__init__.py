@@ -1,0 +1,1 @@
+"""contact (PyTorch port; see the package docstring)."""

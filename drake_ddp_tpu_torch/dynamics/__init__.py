@@ -1,0 +1,1 @@
+"""dynamics (PyTorch port; see the package docstring)."""

@@ -1,0 +1,1 @@
+"""mpc (PyTorch port; see the package docstring)."""

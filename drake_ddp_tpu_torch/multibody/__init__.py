@@ -1,0 +1,1 @@
+"""multibody (PyTorch port; see the package docstring)."""

@@ -1,0 +1,1 @@
+"""solver (PyTorch port; see the package docstring)."""
