@@ -4,15 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``drake_ddp_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, checks a small MPC
-chain against the plain float64 chain on the CPU, and drives the
-flagship batched mini-cheetah MPC (n 37, m 12, N 50, 16 contacts,
-contact_iters 8, setInterval-8, ls_parallel 2, max_iters 8, batch 256)
-through ``mpc_solve_batched`` on both rollout paths: the fused megaroll
-kernel, then one megastep launch per horizon step.  Every phase prints
-one JSON line; the line before the last lists the kernels, and the last
-line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-without that line.  Needs a CUDA card; exits 2 without one.
+each against its plain PyTorch version on the card (megastep, megaroll,
+and megajac root-seeded and cold-Newton), checks a small MPC chain
+against the plain float64 chain on the CPU, and drives the flagship
+batched mini-cheetah MPC (n 37, m 12, N 50, 16 contacts, contact_iters
+8, setInterval-8, ls_parallel 2, max_iters 8, batch 256) through
+``mpc_solve_batched`` with the fused megaroll rollout and the megajac
+derivatives; then one entry solve each with the plain lane Jacobian
+(held to the megajac one by the loose chain pin over the batch, beside
+a noise control, with megajac checked on that solve's own Jacobian
+inputs), with the cold-Newton megajac, and with one megastep launch per
+horizon step.  Every phase prints one JSON line; the line before the
+last lists the kernels, and the last line is ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero without that line.  Needs a CUDA
+card; exits 2 without one.
 """
 
 import json
@@ -26,7 +31,8 @@ from pathlib import Path
 H100_FP32_FLOPS = 67e12      # FP32 outside the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12   # HBM3
 BATCH = 256
-FLAGSHIP_BUDGET_S = 240.0    # wall time the flagship resolves may take
+JAC_LANES = 7 * BATCH        # the flagship's derivative call: 7 keypoints
+FLAGSHIP_BUDGET_S = 180.0    # wall time the flagship resolves may take
 
 REPO = Path(__file__).resolve().parent
 
@@ -62,57 +68,93 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, flops=H100_FP32_FLOPS):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_FP32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def step_ops(kd):
-    """Floating-point operations that one lane's step needs at this
-    model's sizes, not what csrc/lanestep.cuh happens to execute: each
-    body's ancestor dofs only, each Jacobian column once, the symmetric
-    half of the mass matrix, a triangular Cholesky, each contact's
-    Jacobian products over its nonzero columns (the dofs of its bodies'
-    ancestors), and the unpivoted Gauss-Jordan Newton solve that the
+def op_counts(kd):
+    """Floating-point operations that one lane needs for each part of the
+    step at this model's sizes, not what csrc/lanestep.cuh happens to
+    execute: each body's ancestor dofs only, each Jacobian column once,
+    the symmetric half of the mass matrix, a triangular Cholesky, each
+    contact's Jacobian products over its nonzero columns (the dofs of its
+    bodies' ancestors), and the unpivoted Gauss-Jordan solves that the
     reference runs, on the columns not yet eliminated."""
     import numpy as np
     from drake_ddp_tpu_torch.multibody.model import ancestor_dof_mask
     model = kd.model
     nb, nv, nu = model.nb, model.nv, model.nu
     T = kd._struct
-    ci, nc = T.contact_iters, T.nc
     anc = ancestor_dof_mask(model) > 0
     na = anc.sum(axis=1)                                  # ancestors/body
     pjc = 15                      # point-Jacobian column: lever, cross, blend
-    ops = nb * (63 + 45)                                  # fk
+    c = dict(fk=nb * (63 + 45))
     # mass matrix: com and world inertia per body, each ancestor column
     # once (angular 3, linear pjc, I a 15), the symmetric half of the
     # column products (13 each)
-    ops += int(np.sum(108 + na * (3 + pjc + 15) + na * (na + 1) // 2 * 13))
-    ops += int(np.sum(na * 6 + na * 3 + 90 + na * (pjc + 12)))  # bias
-    ops += nv * 13 + nb * 40 + nu
+    c["mass"] = int(np.sum(108 + na * (3 + pjc + 15)
+                           + na * (na + 1) // 2 * 13))
+    c["bias"] = (int(np.sum(na * 6 + na * 3 + 90 + na * (pjc + 12)))
+                 + nv * 13 + nb * 40 + nu)
     # Crout Cholesky (the dot products of the lower triangle), its
     # square roots and divisions, then two triangular solves
-    chol = sum(2 * j * (nv - j) for j in range(nv)) + nv * (nv + 3) // 2
-    ops += chol + 2 * nv * nv + 2 * nv
-    if not T.has_contact:
-        return ops + 40
-    ops += T.ns * 18 + T.nbox * 63
-    tau = with_g = 0
-    for c in range(nc):
-        a, b = T.c_body_a[c], T.c_body_b[c]
-        ma = anc[a] if a >= 0 else np.zeros(nv, bool)
-        mb = anc[b] if b >= 0 else np.zeros(nv, bool)
-        cols = int((ma | mb).sum())                       # nonzero Jc columns
-        ops += 90 + int(ma.sum() + mb.sum()) * pjc + int((ma & mb).sum()) * 3
-        tau += 6 * cols + 60 + 6 * cols                   # Jc v, f, Jc' f
-        with_g += 40 + 15 * cols + 6 * cols * cols        # D, E = D Jc, Jc' E
-    res = nv + 2 * nv * nv + 4 * nv                       # M (vp - v) - dt ..
-    gj = (nv - 1) * sum(1 + 2 * (nv - k) for k in range(nv)) + nv
-    ops += ci * (tau + with_g + res + 2 * nv * nv + gj + tau + res + 3 * nv)
-    return ops + 40
+    c["chol"] = (sum(2 * j * (nv - j) for j in range(nv))
+                 + nv * (nv + 3) // 2 + 2 * nv * nv + 2 * nv)
+    # the Gauss-Jordan inverse of G: each row's factor and the pivot
+    # row's remaining left columns and right half, then the diagonal
+    c["inv"] = ((nv - 1) * sum(1 + 2 * (nv - k - 1) + 2 * nv
+                               for k in range(nv)) + nv * nv)
+    c["integ"] = 40
+    c["res"] = nv + 2 * nv * nv + 4 * nv                  # M (vp - v) - dt ..
+    c["geom"] = c["tau"] = c["with_g"] = c["newton"] = 0
+    if T.has_contact:
+        c["geom"] = T.ns * 18 + T.nbox * 63
+        for ci in range(T.nc):
+            a, b = T.c_body_a[ci], T.c_body_b[ci]
+            ma = anc[a] if a >= 0 else np.zeros(nv, bool)
+            mb = anc[b] if b >= 0 else np.zeros(nv, bool)
+            cols = int((ma | mb).sum())                   # nonzero Jc columns
+            c["geom"] += (90 + int(ma.sum() + mb.sum()) * pjc
+                          + int((ma & mb).sum()) * 3)
+            c["tau"] += 6 * cols + 60 + 6 * cols          # Jc v, f, Jc' f
+            c["with_g"] += 40 + 15 * cols + 6 * cols * cols   # D, D Jc, Jc' E
+        gj = (nv - 1) * sum(1 + 2 * (nv - k) for k in range(nv)) + nv
+        c["newton"] = T.contact_iters * (
+            2 * c["tau"] + c["with_g"] + 2 * c["res"] + 2 * nv * nv + gj
+            + 3 * nv)
+    return c
+
+
+def step_ops(kd):
+    """Operations one lane's step needs (see op_counts)."""
+    c = op_counts(kd)
+    return (c["fk"] + c["mass"] + c["bias"] + c["chol"] + c["geom"]
+            + c["newton"] + c["integ"])
+
+
+def jac_ops(kd, root):
+    """Operations one lane's Jacobian needs: the primal once (cold: with
+    the step's predictor and Newton), G at the root and its inverse; a
+    forward-mode tangent at 2 operations per primal operation (a
+    product's tangent is two products and a sum, a sum's one sum) for
+    each of the nq q-directions through kinematics, mass matrix, bias,
+    narrowphase and the residual, and each of the nv v-directions through
+    the bias and the residual; dv' = -G^-1 dres for the n x-directions;
+    and the integrator's tangent for all n + m directions."""
+    c = op_counts(kd)
+    nq, nv, nu = kd.model.nq, kd.model.nv, kd.model.nu
+    n = nq + nv
+    kin = c["fk"] + c["mass"] + c["bias"]
+    at_root = c["tau"] + c["with_g"] + c["res"] if c["geom"] else 0
+    primal = (kin + c["geom"] + at_root + c["inv"]
+              + (0 if root else c["chol"] + c["newton"]))
+    q_dirs = nq * 2 * (kin + c["geom"] + c["tau"] + c["res"])
+    v_dirs = nv * 2 * (c["bias"] + c["res"])
+    return (primal + q_dirs + v_dirs + 2 * n * nv * nv + nu * nv
+            + (n + nu) * 2 * c["integ"])
 
 
 def phase_build():
@@ -187,7 +229,7 @@ def phase_megastep(results):
         source="drake_ddp_tpu_torch/csrc/megastep.cu",
         replaces="drake_ddp_tpu/ops/megastep.py:90", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        library_ms=None, lanes=L, check=ok)
 
 
 def rollout_tapes(mc, L, T, gen, device):
@@ -307,7 +349,124 @@ def phase_megaroll(results):
         source="drake_ddp_tpu_torch/csrc/megaroll.cu",
         replaces="drake_ddp_tpu/ops/megaroll.py:212", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        library_ms=None, lanes=L, check=ok)
+
+
+def jac_errors(kd, args64, got, root, plain32):
+    """Per lane, the maxima over its n x (n + m) entries of |kernel -
+    plain f64|, |plain f32 - plain f64| and |plain f64|, with the kernel's
+    ``got`` and the plain float32 ``plain32`` each an (fx, fu) pair."""
+    import torch
+    J64 = torch.cat(kd.lane_jac(root)(*args64), dim=1)
+    lane_max = lambda a: a.abs().amax(dim=(0, 1))
+    K = torch.cat(got, dim=1).double()
+    J32 = torch.cat(plain32, dim=1).double()
+    return (lane_max(K - J64), lane_max(J32 - J64), lane_max(J64),
+            lane_max(K - J32), bool(torch.isfinite(K).all()))
+
+
+def jac_check(kd, x64, u64, got, root):
+    """Holds a kernel Jacobian ``got`` = (fx, fu) of the float32 inputs
+    to the plain float64 Jacobian of the float64 inputs, lane by lane:
+    max |kernel - plain f64| <= 3 max |plain f32 - plain f64| + 1e-5 max
+    |J f64|, each the maximum over that lane's n x (n + m) entries.  The
+    root-seeded Jacobian is linearized at x_next = the plain float64 step
+    of each lane, rounded to float32 for the float32 versions.  The cold
+    one runs the step's own Newton: a lane whose plain float32 root v'
+    differs from the float64 one by more than CROSSING is a damped-Newton
+    flip (rollout_step_check), its float32 Jacobian is of another root.
+    So is a lane whose float64 root moves by more than CROSSING when its
+    inputs are rounded to float32: the kernel computes in float64 from
+    those inputs.  Such lanes are left out, counted, and at most 2% of
+    the lanes."""
+    import torch
+    nq = kd.model.nq
+    xn64 = kd.step(x64, u64)
+    args64 = (x64, u64) + ((xn64,) if root else ())
+    args32 = tuple(a.float().contiguous() for a in args64)
+    e_k, e_p, scale, e_kp, finite = jac_errors(
+        kd, args64, got, root, kd.lane_jac(root)(*args32))
+    L = x64.shape[-1]
+    flip_plain = flip_in = torch.zeros(L, dtype=torch.bool,
+                                       device=x64.device)
+    dev_plain = dev_in = torch.zeros_like(scale)
+    if not root:
+        off = lambda x, u: (kd.step(x, u)[nq:].double()
+                            - xn64[nq:]).abs().amax(dim=0)
+        dev_plain = off(*args32[:2])
+        dev_in = off(args32[0].double(), args32[1].double())
+        flip_plain, flip_in = dev_plain > CROSSING, dev_in > CROSSING
+    flip = flip_plain | flip_in
+    margin = torch.where(flip, -float("inf"), e_k - 3.0 * e_p - 1e-5 * scale)
+    worst = int(margin.argmax())
+    n_flip = int(flip.sum())
+    ok = bool(finite and (margin <= 0).all() and n_flip <= 0.02 * L)
+    held = lambda a: torch.where(flip, 0.0, a)
+    return ok, {
+        "criterion": "per lane: max |kernel - plain f64| <= 3 max |plain "
+                     "f32 - plain f64| + 1e-5 max |J f64|" + (
+                         "" if root else "; lanes whose plain f32 root, "
+                         "or f64 root of the f32-rounded inputs, differs "
+                         "from the f64 root by > 1e-4 (flips) left out, "
+                         "at most 2%"),
+        "lanes": L, "flips": n_flip, "flips_plain_f32": int(flip_plain.sum()),
+        "flips_rounded_inputs": int(flip_in.sum()),
+        "worst_lane_margin": margin.max().item(),
+        "worst_lane_root_dev_plain_f32": dev_plain[worst].item(),
+        "worst_lane_root_dev_rounded_inputs": dev_in[worst].item(),
+        "worst_lane_ratio": held((e_k - 1e-5 * scale) / e_p).max().item(),
+        "err_kernel_vs_f64_max": held(e_k).max().item(),
+        "err_plain_f32_vs_f64_max": held(e_p).max().item(),
+        "max_abs_err_vs_plain_f32": held(e_kp).max().item(),
+    }
+
+
+def phase_megajac(results, root):
+    """megajac at the flagship's derivative call (L = 7 x 256 lanes),
+    root-seeded (with a ragged L too) or cold-Newton, against the plain
+    lane Jacobian."""
+    import torch
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    dev = torch.device("cuda")
+    mc, system, model = cheetah(dev)
+    kd = kernel_data_for_system(system)
+    name = "megajac" if root else "megajac_cold"
+    n, m = kd.n, kd.m
+    for L in ((JAC_LANES, 1000) if root else (JAC_LANES,)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x64, u64 = seeded_states(mc, L, gen, dev, torch.float64)
+        x32, u32 = x64.float(), u64.float()
+        xn32 = kd.step(x64, u64).float() if root else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = megajac(kd, x32, u32, xn32)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ok, report = jac_check(kd, x64, u64, got, root)
+        args = (x32, u32) + ((xn32,) if root else ())
+        ms = cuda_ms(lambda: megajac(kd, *args), 3)
+        plain_ms = cuda_ms(lambda: kd.lane_jac(root)(*args), 1)
+        # the function's inputs and outputs are float32, so its bound is
+        # at the float32 rate; the kernel's float64 is its own choice
+        n_bytes = ((n + m + (n if root else 0)) + n * (n + m)) * L * 4
+        b_ms, b_by = bound_ms(n_bytes, jac_ops(kd, root) * L)
+        emit({"phase": name, "ok": ok, **report, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "call_memory_bytes": peak,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        if not ok:
+            fail(name, f"kernel outside tolerance at L {L}")
+        if L == JAC_LANES:
+            results[name] = dict(
+                name=name, route="cuda",
+                source="drake_ddp_tpu_torch/csrc/megajac.cu",
+                replaces=("drake_ddp_tpu/ops/megajac.py:214" if root else
+                          "tools/probe_megajac_compile.py:91"),
+                max_abs_err=report["max_abs_err_vs_plain_f32"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, lanes=L, check=ok)
 
 
 def mpc_setup(mc, system, N, B, contact_iters, max_iters, minN, device,
@@ -384,11 +543,18 @@ def phase_small_chain():
         fail("small_chain", "card chain outside the loose chain pin")
 
 
-def run_flagship(rollout_kernel, num_resolves, seed, timer=None):
+def run_flagship(rollout_kernel, num_resolves, seed, timer=None,
+                 deriv_kernel="megajac", root_jac=lambda jac: jac):
+    """The flagship chain, with the system's root-seeded lane Jacobian
+    replaced by ``root_jac(it)``; a None there makes the solver take the
+    cold-Newton one."""
+    import dataclasses
     import torch
     from drake_ddp_tpu_torch.mpc.driver import mpc_solve_batched
     dev = torch.device("cuda")
     mc, system, _ = cheetah(dev)
+    system = dataclasses.replace(
+        system, lane_jac_root_fn=root_jac(system.lane_jac_root_fn))
     gen = torch.Generator(device=dev).manual_seed(seed)
     prob, scfg, mpcc, shift, rescue = mpc_setup(
         mc, system, 50, BATCH, 8, 8, 8, dev, torch.float32, gen)
@@ -396,6 +562,7 @@ def run_flagship(rollout_kernel, num_resolves, seed, timer=None):
     t0 = time.perf_counter()
     res = mpc_solve_batched(system, scfg, prob, mpcc(num_resolves), shift,
                             rollout_kernel=rollout_kernel,
+                            deriv_kernel=deriv_kernel,
                             consec0=torch.zeros(BATCH, dtype=torch.int32,
                                                 device=dev),
                             rescue_u=rescue, timer=timer)
@@ -417,48 +584,186 @@ def check_result(res, N, R, phase):
         fail(phase, f"bad result: shapes ok {shapes}, finite {finite}")
 
 
+NOISE_REL = 1e-6   # the control's relative noise on the plain Jacobian
+
+
+def chain_agreement(a, b):
+    """Result ``a`` against ``b`` (same problems): the lanes outside the
+    loose chain pin (iterations +-1, costs 15%), the batch's mean
+    iterations and total cost relative to b's, and the median and
+    largest lane cost differences."""
+    d_it = (a.iterations.long() - b.iterations.long()).abs().amax(dim=1)
+    ca, cb = a.costs.double(), b.costs.double()
+    c_rel = ((ca - cb).abs() / cb.abs()).amax(dim=1)
+    return {"lanes_outside_pin": int(((d_it > 1) | (c_rel > 0.15)).sum()),
+            "lanes_equal_iterations": int((d_it == 0).sum()),
+            "mean_iterations_diff": (a.iterations.double().mean()
+                                     - b.iterations.double().mean()).item(),
+            "total_cost_rel": ((ca.sum() - cb.sum()) / cb.sum()).item(),
+            "lane_cost_rel_median": c_rel.median().item(),
+            "lane_cost_rel_max": c_rel.max().item()}
+
+
+def phase_flagship_lane(entry, t_entry, entry_timer, zero_counts):
+    """The plain lane Jacobian on the flagship's entry solve (same seed)
+    against the megajac one.
+
+    Per lane the chain cannot be pinned at batch 256: a 1e-6 relative
+    change of the Jacobian moves about one lane in six out of
+    iterations +-1 and costs 15%, because a noise-flipped linesearch
+    acceptance settles a lane in a nearby basin.  A second lane solve
+    with that much noise on its Jacobian measures this floor in the same
+    run.  Pass: the batch within the loose chain pin (mean iterations
+    +-1, total cost 15%); no more lanes outside the per-lane pin than
+    2 x the noise control's + 8; and on every Jacobian call of the lane
+    solve, megajac on the solver's own inputs within jac_check's pin
+    against the plain float64 Jacobian, on every lane."""
+    import torch
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+
+    calls = []
+
+    def recording(jac):
+        def f(*lanes):
+            out = jac(*lanes)
+            calls.append(tuple(tuple(t.clone() for t in ts)
+                               for ts in (lanes, out)))
+            return out
+        return f
+
+    def noisy(jac):
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        shake = lambda J: J * (1 + NOISE_REL * torch.randn(
+            J.shape, generator=gen, device=J.device, dtype=J.dtype))
+        return lambda *lanes: tuple(shake(J) for J in jac(*lanes))
+
+    lane_timer = PhaseTimer()
+    zero_counts()
+    lane, t_lane = run_flagship("fused", 0, seed=10, timer=lane_timer,
+                                deriv_kernel="lane", root_jac=recording)
+    lane_launches = megajac.launches
+    check_result(lane, 50, 0, "flagship_lane")
+    control, _ = run_flagship("fused", 0, seed=10, deriv_kernel="lane",
+                              root_jac=noisy)
+    got, floor = chain_agreement(entry, lane), chain_agreement(control, lane)
+
+    # megajac on the lane solve's own Jacobian inputs
+    kd = kernel_data_for_system(cheetah(torch.device("cuda"))[1])
+    worst, n_bad, finite = -float("inf"), 0, True
+    for lanes, plain32 in calls:
+        e_k, e_p, scale, _, fin = jac_errors(
+            kd, tuple(a.double() for a in lanes), megajac(kd, *lanes), True,
+            plain32)
+        margin = e_k - 3.0 * e_p - 1e-5 * scale
+        worst = max(worst, margin.max().item())
+        n_bad += int((margin > 0).sum())
+        finite = finite and fin
+    jac_calls = lane_timer.counts["jac"]
+    ok = (abs(got["mean_iterations_diff"]) <= 1
+          and abs(got["total_cost_rel"]) <= 0.15
+          and got["lanes_outside_pin"] <= 2 * floor["lanes_outside_pin"] + 8
+          and n_bad == 0 and finite and lane_launches == 0)
+    emit({"phase": "flagship_lane", "ok": ok, "deriv_kernel": "lane",
+          "batch": BATCH, "resolves": 0, "seconds": t_lane,
+          "megajac_entry_seconds": t_entry,
+          "criterion": "vs the megajac entry solve of the same seed: mean "
+                       "iterations +-1 and total cost 15%; lanes outside "
+                       "the per-lane pin (iterations +-1, costs 15%) <= 2 x "
+                       "those of a lane solve with 1e-6 relative Jacobian "
+                       "noise + 8; megajac on the lane solve's Jacobian "
+                       "inputs within jac_check's pin on every lane",
+          "megajac_vs_lane": got, "noisy_lane_vs_lane": floor,
+          "jac_inputs_checked": [len(calls), sum(a[0].shape[-1]
+                                                 for a, _ in calls)],
+          "jac_lanes_outside_pin": n_bad, "jac_worst_lane_margin": worst,
+          "megajac_launches": lane_launches, "jac_calls": jac_calls,
+          "plain_jac_ms_per_call": lane_timer.totals_ms()["jac"] / jac_calls,
+          "megajac_jac_ms_per_call": entry_timer.totals_ms()["jac"]
+          / entry_timer.counts["jac"]})
+    if not ok:
+        fail("flagship_lane", "lane entry solve outside the chain pin")
+
+
 def phase_flagship(results):
     import torch
+    from drake_ddp_tpu_torch.ops.megajac import megajac
     from drake_ddp_tpu_torch.ops.megaroll import megaroll
     from drake_ddp_tpu_torch.ops.megastep import megastep
     from drake_ddp_tpu_torch.solver.batched import any_lane
     from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+
+    def zero_counts():
+        megaroll.launches = megastep.launches = megajac.launches = 0
+        any_lane.syncs = 0
+
     # size the chain: one entry solve alone, then as many resolves as fit
-    _, t_entry = run_flagship("fused", 0, seed=10)
+    entry_timer = PhaseTimer()
+    zero_counts()
+    entry, t_entry = run_flagship("fused", 0, seed=10, timer=entry_timer)
     R = max(1, min(12, int(FLAGSHIP_BUDGET_S / max(t_entry, 1e-3)) - 1))
     timer = PhaseTimer()
     torch.cuda.reset_peak_memory_stats()
-    megaroll.launches = megastep.launches = any_lane.syncs = 0
+    zero_counts()
     res, secs = run_flagship("fused", R, seed=11, timer=timer)
     launches, syncs = megaroll.launches, any_lane.syncs
+    jac_launches = megajac.launches
     phases = timer.totals_ms()
+    rounds = timer.counts["riccati"]
     check_result(res, 50, R, "flagship")
     solves = BATCH * (R + 1)
     emit({"phase": "flagship", "rollout_kernel": "fused",
-          "deriv_kernel": "lane", "batch": BATCH, "horizon": 50,
+          "deriv_kernel": "megajac", "batch": BATCH, "horizon": 50,
           "n": 37, "m": 12, "contacts": 16, "contact_iters": 8,
           "keypoint_interval": 8, "ls_parallel": 2, "max_iters": 8,
+          "jac_lanes": JAC_LANES, "budget_s": FLAGSHIP_BUDGET_S,
           "resolves": R, "entry_solve_seconds": t_entry, "seconds": secs,
           "resolves_per_s": solves / secs,
-          "megaroll_launches": launches, "megastep_launches":
-          megastep.launches, "host_syncs": syncs,
-          "ilqr_rounds": timer.counts["riccati"],
-          "megaroll_launches_per_round": launches / timer.counts["riccati"],
+          "megaroll_launches": launches, "megajac_launches": jac_launches,
+          "megastep_launches": megastep.launches, "host_syncs": syncs,
+          "ilqr_rounds": rounds,
+          "megaroll_launches_per_round": launches / rounds,
           "phase_ms": {"rollout_kernel": phases.get("rollout", 0.0),
-                       "lane_jac": phases.get("lane_jac", 0.0),
+                       "jac": phases.get("jac", 0.0),
                        "lerp": phases.get("derivs", 0.0)
-                       - phases.get("lane_jac", 0.0),
+                       - phases.get("jac", 0.0),
                        "riccati": phases.get("riccati", 0.0)},
+          "jac_ms_per_call": phases.get("jac", 0.0) / max(jac_launches, 1),
           "iterations_mean": res.iterations.float().mean().item(),
           "diverged_fraction": res.diverged.float().mean().item(),
           "dead_fraction": res.dead.float().mean().item(),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     if launches == 0:
         fail("flagship", "megaroll was never launched on the main path")
+    if jac_launches == 0 or jac_launches != rounds:
+        fail("flagship", f"megajac launched {jac_launches} times in "
+                         f"{rounds} iLQR rounds (one per round expected)")
     results["megaroll"]["launches"] = launches
+    results["megajac"]["launches"] = jac_launches
+
+    phase_flagship_lane(entry, t_entry, entry_timer, zero_counts)
+
+    # the cold-Newton Jacobian: a system without the root-seeded one
+    zero_counts()
+    cold_timer = PhaseTimer()
+    cold, t_cold = run_flagship("fused", 0, seed=10, timer=cold_timer,
+                                root_jac=lambda jac: None)
+    check_result(cold, 50, 0, "flagship_cold")
+    emit({"phase": "flagship_cold", "deriv_kernel": "megajac",
+          "root_seeded": False, "batch": BATCH, "resolves": 0,
+          "seconds": t_cold, "megajac_cold_launches": megajac.launches,
+          "ilqr_rounds": cold_timer.counts["riccati"],
+          "jac_ms_per_call": cold_timer.totals_ms()["jac"]
+          / max(megajac.launches, 1),
+          "iterations_mean": cold.iterations.float().mean().item(),
+          "diverged_fraction": cold.diverged.float().mean().item()})
+    if megajac.launches == 0:
+        fail("flagship_cold", "the cold megajac was never launched")
+    results["megajac_cold"]["launches"] = megajac.launches
 
     # the per-step path: one entry solve, megastep once per horizon step
-    megaroll.launches = megastep.launches = any_lane.syncs = 0
+    zero_counts()
     timer = PhaseTimer()
     res, secs = run_flagship("megastep", 0, seed=12, timer=timer)
     check_result(res, 50, 0, "flagship_megastep")
@@ -500,10 +805,13 @@ def main():
     results = {}
     phase_megastep(results)
     phase_megaroll(results)
+    phase_megajac(results, root=True)
+    phase_megajac(results, root=False)
     phase_small_chain()
     phase_flagship(results)
     print(card)
-    emit({"kernels": [results["megastep"], results["megaroll"]]})
+    emit({"kernels": [results[k] for k in ("megastep", "megaroll",
+                                           "megajac", "megajac_cold")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

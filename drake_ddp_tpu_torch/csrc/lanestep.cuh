@@ -26,8 +26,9 @@
 // tiles and several threads per lane are later work.
 //
 // The step is a template over the scalar type S so that the Jacobian
-// kernel can run the same code on a forward-mode dual number: S needs
-// + - * /, the s_* math functions below and val() for comparisons.
+// kernel (megajac.cu) runs the same code on the forward-mode dual number
+// of dual.cuh: S needs + - * /, the s_* math functions below and val()
+// for comparisons.
 
 #pragma once
 
@@ -157,9 +158,9 @@ struct Lane {
   __device__ S& operator[](int i) const { return p[(size_t)i * L]; }
 };
 
-// Scalar math for S = float.  A dual type provides the same overloads.
-// Accurate libdevice versions: the kernels are built without fast math,
-// because stiff contact amplifies rounding.
+// Scalar math for S = float and S = double.  A dual type provides the
+// same overloads.  Accurate libdevice versions: the kernels are built
+// without fast math, because stiff contact amplifies rounding.
 __device__ inline float val(float x) { return x; }
 __device__ inline float s_sqrt(float x) { return sqrtf(x); }
 __device__ inline float s_exp(float x) { return expf(x); }
@@ -170,6 +171,16 @@ __device__ inline float s_abs(float x) { return fabsf(x); }
 // jnp.sign: sign(0) == 0 (copysign would give +-1)
 __device__ inline float s_sign(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+}
+__device__ inline double val(double x) { return x; }
+__device__ inline double s_sqrt(double x) { return sqrt(x); }
+__device__ inline double s_exp(double x) { return exp(x); }
+__device__ inline double s_log1p(double x) { return log1p(x); }
+__device__ inline double s_sin(double x) { return sin(x); }
+__device__ inline double s_cos(double x) { return cos(x); }
+__device__ inline double s_abs(double x) { return fabs(x); }
+__device__ inline double s_sign(double x) {
+  return x > 0. ? 1. : (x < 0. ? -1. : 0.);
 }
 
 // log(1 + exp(z)) = max(z, 0) + log1p(exp(-|z|)): the form of
@@ -515,6 +526,34 @@ __device__ void gauss_jordan(const Layout& Y, const Lane<S>& s, int nv,
     s[x + i] = s[Y.G + i * w + nv] / s[Y.G + i * w + i];
 }
 
+// Unpivoted Gauss-Jordan inverse of the nv x nv block at Y.G (row stride
+// nv + 1), as lanejac.inv_small_T: eliminate on [G | I], then divide each
+// row of the right half by its diagonal.  The right half lives in `inv`
+// (element (i, j) at inv[i * nv + j]); G is overwritten.  The pivot row
+// is skipped, as the reference updates it with a zero factor.
+template <typename S>
+__device__ void gauss_jordan_inverse(const Layout& Y, const Lane<S>& s,
+                                     int nv, const Lane<S>& inv) {
+  const int w = nv + 1;
+  for (int i = 0; i < nv; ++i)
+    for (int j = 0; j < nv; ++j) inv[i * nv + j] = S(i == j ? 1.f : 0.f);
+  for (int k = 0; k < nv; ++k) {
+    const S pivot = s[Y.G + k * w + k];
+    for (int i = 0; i < nv; ++i) {
+      if (i == k) continue;
+      const S f = s[Y.G + i * w + k] / pivot;
+      for (int j = 0; j < nv; ++j)
+        s[Y.G + i * w + j] = s[Y.G + i * w + j] - f * s[Y.G + k * w + j];
+      for (int j = 0; j < nv; ++j)
+        inv[i * nv + j] = inv[i * nv + j] - f * inv[k * nv + j];
+    }
+  }
+  for (int i = 0; i < nv; ++i) {
+    const S diag = s[Y.G + i * w + i];
+    for (int j = 0; j < nv; ++j) inv[i * nv + j] = inv[i * nv + j] / diag;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // contact
 // ---------------------------------------------------------------------------
@@ -766,13 +805,18 @@ __device__ void contact_tau(const StepTable& T, const Layout& Y,
 
 // Implicit residual res = M (vp - v) - dt (tau + Jc' f(Jc vp)) into out;
 // returns |res|^2.  With with_G, also leaves G = M - dt Jc' D Jc with
-// res in its last column.
+// res in its last column.  With contact false the contact term is left
+// out (the Jacobian's v-directions, whose contact tangent is zero).
 template <typename S>
 __device__ S residual(const StepTable& T, const Layout& Y, const Lane<S>& s,
-                      int vp, float vs, bool with_G, int out) {
+                      int vp, float vs, bool with_G, int out,
+                      bool contact = true) {
   const int nv = T.nv, w = nv + 1;
   const int V = Y.X + T.nq;
-  contact_tau(T, Y, s, vp, true, vs, with_G);
+  if (contact)
+    contact_tau(T, Y, s, vp, true, vs, with_G);
+  else
+    for (int k = 0; k < nv; ++k) s[Y.TC + k] = S(0.f);
   S sq = S(0.f);
   for (int i = 0; i < nv; ++i) {
     S acc = S(0.f);
@@ -821,41 +865,50 @@ __device__ void integrate(const StepTable& T, const Layout& Y,
   for (int k = 0; k < T.nv; ++k) s[Y.XN + T.nq + k] = s[vnext + k];
 }
 
+// The next velocity v' into VP, after fk, mass_matrix and bias_and_tau:
+// the contact-free predictor v + dt M^-1 tau, then the contact solve
+// (narrowphase and contact Jacobians first).  The step and the
+// cold-Newton Jacobian (megajac.cu) both run it.
+template <typename S>
+__device__ void next_velocity(const StepTable& T, const Layout& Y,
+                              const Lane<S>& s) {
+  const int nv = T.nv;
+  const int V = Y.X + T.nq;
+  const float dt = T.dt;
+  // contact-free predictor v + dt M^-1 tau (into VP)
+  chol_solve(Y, s, nv, Y.TAU, Y.VP);
+  for (int k = 0; k < nv; ++k) s[Y.VP + k] = s[V + k] + dt * s[Y.VP + k];
+  if (!T.has_contact) return;
+  contact_primal(T, Y, s);
+  if (T.contact_iters == 0) {
+    contact_tau(T, Y, s, V, false, 0.f, false);
+    for (int k = 0; k < nv; ++k) s[Y.TC + k] = s[Y.TAU + k] + s[Y.TC + k];
+    chol_solve(Y, s, nv, Y.TC, Y.VP);
+    for (int k = 0; k < nv; ++k) s[Y.VP + k] = s[V + k] + dt * s[Y.VP + k];
+    return;
+  }
+  // stiction continuation + damped Newton: per lane, a half step when
+  // the full step's residual grew (impact overshoot)
+  for (int it = 0; it < T.contact_iters; ++it) {
+    const float vs = T.sched[it];
+    const S r0 = residual(T, Y, s, Y.VP, vs, true, Y.RES);
+    gauss_jordan(Y, s, nv, Y.DV);
+    for (int k = 0; k < nv; ++k) s[Y.VP1 + k] = s[Y.VP + k] - s[Y.DV + k];
+    const S r1 = residual(T, Y, s, Y.VP1, vs, false, Y.R1);
+    const bool grew = val(r1) > 4.f * val(r0);
+    for (int k = 0; k < nv; ++k)
+      s[Y.VP + k] = grew ? s[Y.VP + k] - 0.5f * s[Y.DV + k] : s[Y.VP1 + k];
+  }
+}
+
 // The step: state at Y.X (q then v), input at Y.U -> next state at Y.XN.
 template <typename S>
 __device__ void lane_step(const StepTable& T, const Layout& Y,
                           const Lane<S>& s) {
-  const int nv = T.nv;
-  const int V = Y.X + T.nq;
-  const float dt = T.dt;
   fk(T, Y, s);
   mass_matrix(T, Y, s);
   bias_and_tau(T, Y, s);
-  // contact-free predictor v + dt M^-1 tau (into VP)
-  chol_solve(Y, s, nv, Y.TAU, Y.VP);
-  for (int k = 0; k < nv; ++k) s[Y.VP + k] = s[V + k] + dt * s[Y.VP + k];
-  if (T.has_contact) {
-    contact_primal(T, Y, s);
-    if (T.contact_iters == 0) {
-      contact_tau(T, Y, s, V, false, 0.f, false);
-      for (int k = 0; k < nv; ++k) s[Y.TC + k] = s[Y.TAU + k] + s[Y.TC + k];
-      chol_solve(Y, s, nv, Y.TC, Y.VP);
-      for (int k = 0; k < nv; ++k) s[Y.VP + k] = s[V + k] + dt * s[Y.VP + k];
-    } else {
-      // stiction continuation + damped Newton: per lane, a half step
-      // when the full step's residual grew (impact overshoot)
-      for (int it = 0; it < T.contact_iters; ++it) {
-        const float vs = T.sched[it];
-        const S r0 = residual(T, Y, s, Y.VP, vs, true, Y.RES);
-        gauss_jordan(Y, s, nv, Y.DV);
-        for (int k = 0; k < nv; ++k) s[Y.VP1 + k] = s[Y.VP + k] - s[Y.DV + k];
-        const S r1 = residual(T, Y, s, Y.VP1, vs, false, Y.R1);
-        const bool grew = val(r1) > 4.f * val(r0);
-        for (int k = 0; k < nv; ++k)
-          s[Y.VP + k] = grew ? s[Y.VP + k] - 0.5f * s[Y.DV + k] : s[Y.VP1 + k];
-      }
-    }
-  }
+  next_velocity(T, Y, s);
   integrate(T, Y, s, Y.VP);
 }
 

@@ -21,6 +21,9 @@ class DiscreteSystem:
         n, m: state and control dimensions.
         dt: the timestep [s].
         lane_step_fn: (x (n, L), u (m, L)) -> x_next (n, L), plain torch.
+        lane_jac_fn: (x (n, L), u (m, L)) -> (fx (n, n, L), fu (n, m, L)),
+            the cold-Newton lane Jacobian: it runs the step's own contact
+            Newton and linearizes at that root.
         lane_jac_root_fn: (x (n, L), u (m, L), x_next (n, L)) ->
             (fx (n, n, L), fu (n, m, L)), the root-seeded lane Jacobian
             linearized at the step's own next state x_next.
@@ -32,4 +35,5 @@ class DiscreteSystem:
     m: int
     dt: float
     lane_step_fn: Optional[Callable] = None
+    lane_jac_fn: Optional[Callable] = None
     lane_jac_root_fn: Optional[Callable] = None

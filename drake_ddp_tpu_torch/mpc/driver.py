@@ -92,7 +92,7 @@ def mpc_solve_batched(
     mpc: MPCConfig,
     x_nom_shift: Optional[torch.Tensor] = None,
     rollout_kernel: str = "fused",
-    deriv_kernel: str = "lane",
+    deriv_kernel: str = "megajac",
     consec0: Optional[torch.Tensor] = None,
     rescue_u: Optional[torch.Tensor] = None,
     timer=None,

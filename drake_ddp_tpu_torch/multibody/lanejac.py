@@ -17,11 +17,11 @@ so by the implicit function theorem dv' = -G^{-1} (dres/dq dq + dres/dv dv
   iterations.
 
 The tangent groups run as ``torch.func.vmap`` over ``torch.func.jvp`` so
-the primal is computed once per group.  On the card this is the main
-path's derivative stage for this slice (the JAX package's
-``deriv_kernel="lane"`` configuration); its hand kernel (megajac) is the
-next slice.  The JAX code's ablation and q-loop probe hooks are not
-ported.
+the primal is computed once per group.  This is the plain version of the
+megajac CUDA kernels (:mod:`drake_ddp_tpu_torch.ops.megajac`), which the
+solver runs on the card by default; the solver's ``deriv_kernel="lane"``
+runs this module instead.  The JAX code's ablation and q-loop probe hooks
+are not ported.
 """
 
 from __future__ import annotations

@@ -30,15 +30,15 @@ def make_multibody_system(
     The system lives on the model's device."""
     lane = make_lane_step(model, contact, dt, contact_iters=contact_iters,
                           force_params=force_params)
-    # the implicit contact path has the IFT Jacobian; the explicit
-    # contact_iters == 0 step has none
-    lane_jac_root = None
+    # the implicit contact path has the IFT Jacobians, cold-Newton and
+    # root-seeded; the explicit contact_iters == 0 step has none
+    lane_jac = lane_jac_root = None
     has_contact = contact is not None and contact.num_contacts > 0
     if not has_contact or contact_iters >= 1:
-        lane_jac_root = make_lane_jac(model, contact, dt,
-                                      contact_iters=contact_iters,
-                                      force_params=force_params,
-                                      root_seed=True)
+        lane_jac, lane_jac_root = (
+            make_lane_jac(model, contact, dt, contact_iters=contact_iters,
+                          force_params=force_params, root_seed=root)
+            for root in (False, True))
     return DiscreteSystem(
         step_fn=None,
         params=(model, contact),
@@ -46,5 +46,6 @@ def make_multibody_system(
         m=model.nu,
         dt=dt,
         lane_step_fn=lane,
+        lane_jac_fn=lane_jac,
         lane_jac_root_fn=lane_jac_root,
     )

@@ -21,8 +21,9 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drake_ddp_tpu_torch"
-SOURCES = {"megastep": "megastep.cu", "megaroll": "megaroll.cu"}
-HEADERS = ("lanestep.cuh",)
+SOURCES = {"megastep": "megastep.cu", "megaroll": "megaroll.cu",
+           "megajac": "megajac.cu"}
+HEADERS = ("lanestep.cuh", "dual.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -31,6 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LAUNCHERS = {
     "megastep": ("megastep_launch", [_P] * 5 + [_I, _P]),
     "megaroll": ("megaroll_launch", [_P] * 10 + [_I, _I, _P]),
+    "megajac": ("megajac_launch", [_P] * 10 + [_I, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

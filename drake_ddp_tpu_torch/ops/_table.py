@@ -6,8 +6,8 @@ pads).  :class:`StepKernelData` builds it from a model, a contact scene
 and the step's options, with every float constant taken from the plain
 step's own float32 :class:`~drake_ddp_tpu_torch.multibody.lanestep.
 LaneConsts`, so the kernel and the plain version run on identical
-numbers.  It also carries that plain step, which the kernel wrappers run
-for CPU tensors.
+numbers.  It also carries that plain step and the plain lane Jacobians,
+which the kernel wrappers run for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 from drake_ddp_tpu_torch.contact.forces import (ContactForceParams,
                                                 stiction_schedule)
 from drake_ddp_tpu_torch.contact.geometry import ContactModel
+from drake_ddp_tpu_torch.multibody.lanejac import make_lane_jac
 from drake_ddp_tpu_torch.multibody.lanestep import (LaneConsts,
                                                     make_lane_step)
 from drake_ddp_tpu_torch.multibody.model import MultibodyModel, vdof_body
@@ -190,11 +191,12 @@ def _pack_contact(T: StepTable, cm: ContactModel, C: LaneConsts, f):
 
 
 class StepKernelData:
-    """One step's CUDA table and its plain PyTorch version.
+    """One step's CUDA table and its plain PyTorch versions.
 
-    ``step`` is the plain lane step (the wrappers' CPU path and the
-    kernels' reference); :meth:`table` is the packed table as a uint8
-    tensor on a CUDA device (built once per device)."""
+    ``step`` is the plain lane step and :meth:`lane_jac` the plain lane
+    Jacobian (the wrappers' CPU path and the kernels' references);
+    :meth:`table` is the packed table as a uint8 tensor on a CUDA device
+    (built once per device)."""
 
     def __init__(self, model: MultibodyModel,
                  contact: Optional[ContactModel], dt: float,
@@ -203,12 +205,25 @@ class StepKernelData:
                  step=None):
         self.model, self.contact = model, contact
         self.n, self.m = model.nq + model.nv, model.nu
+        self.dt, self.contact_iters = dt, contact_iters
+        self.force_params = force_params
         self.step = step if step is not None else make_lane_step(
             model, contact, dt, contact_iters=contact_iters,
             force_params=force_params)
         self._struct = pack_step_table(model, contact, dt, contact_iters,
                                        force_params)
         self._tables: Dict[torch.device, torch.Tensor] = {}
+        self._jacs: Dict[bool, object] = {}
+
+    def lane_jac(self, root_seed: bool):
+        """The plain lane Jacobian of this step (``make_lane_jac``), root-
+        seeded ``(x, u, x_next)`` or cold ``(x, u)``; built once."""
+        if root_seed not in self._jacs:
+            self._jacs[root_seed] = make_lane_jac(
+                self.model, self.contact, self.dt,
+                contact_iters=self.contact_iters,
+                force_params=self.force_params, root_seed=root_seed)
+        return self._jacs[root_seed]
 
     @property
     def sizes(self):

@@ -8,9 +8,11 @@ scenario batch as an explicit leading axis B.
   whole-horizon kernel (``rollout_kernel="fused"``, :mod:`ops.megaroll`)
   or one step kernel launch per horizon step (``"megastep"``,
   :mod:`ops.megastep`).  On CPU tensors both run their plain versions.
-- Derivatives come from the root-seeded lane Jacobian in plain PyTorch
-  (``deriv_kernel="lane"``, :mod:`multibody.lanejac`), through the
-  keypoint schedule of :mod:`solver.keypoints`.
+- Derivatives come from the structured-IFT step Jacobian, through the
+  keypoint schedule of :mod:`solver.keypoints`: the megajac CUDA kernels
+  (``deriv_kernel="megajac"``, :mod:`ops.megajac`) or the plain PyTorch
+  lane Jacobian (``"lane"``, :mod:`multibody.lanejac`), root-seeded when
+  the system has a root-seeded Jacobian, else cold-Newton.
 - Both loops keep what ``jax.vmap`` makes of a batched ``while_loop``:
   iterate while ANY lane is active, freeze the carry of inactive lanes.
   Each round costs one host synchronisation to read that flag;
@@ -27,6 +29,7 @@ from functools import partial
 import torch
 
 from drake_ddp_tpu_torch.dynamics.base import DiscreteSystem
+from drake_ddp_tpu_torch.ops.megajac import megajac_for_system
 from drake_ddp_tpu_torch.ops.megaroll import (megaroll_for_system,
                                               rollout_plain)
 from drake_ddp_tpu_torch.ops.megastep import megastep_for_system
@@ -43,6 +46,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
 from drake_ddp_tpu_torch.utils.timing import phase
 
 ROLLOUT_KERNELS = ("fused", "megastep")
+DERIV_KERNELS = ("megajac", "lane")
 
 
 def any_lane(mask: torch.Tensor) -> bool:
@@ -170,12 +174,29 @@ def _rollout_for(system: DiscreteSystem, rollout_kernel: str):
                      f"got {rollout_kernel!r}")
 
 
+def _jac_for(system: DiscreteSystem, deriv_kernel: str):
+    """The lane Jacobian for an explicit kernel choice, and whether it is
+    root-seeded.  Root-seeded when the system has a root-seeded Jacobian:
+    the trajectory handed to the derivative phase is the accepted
+    rollout, whose x_{t+1} is the converged contact root, so the
+    Jacobian's own Newton can be skipped.  Else cold-Newton."""
+    if deriv_kernel not in DERIV_KERNELS:
+        raise ValueError(f"deriv_kernel must be one of {DERIV_KERNELS}, "
+                         f"got {deriv_kernel!r}")
+    root = system.lane_jac_root_fn is not None
+    if not root and system.lane_jac_fn is None:
+        raise ValueError("system provides no lane Jacobian")
+    if deriv_kernel == "megajac":
+        return megajac_for_system(system, root_seed=root), root
+    return (system.lane_jac_root_fn if root else system.lane_jac_fn), root
+
+
 def solve_ilqr_batched(
     system: DiscreteSystem,
     cfg: ILQRConfig,
     prob: ILQRProblem,
     rollout_kernel: str = "fused",
-    deriv_kernel: str = "lane",
+    deriv_kernel: str = "megajac",
     timer=None,
 ) -> ILQRSolution:
     """Batched iLQR: every ``prob`` leaf carries a leading batch axis B;
@@ -183,34 +204,26 @@ def solve_ilqr_batched(
 
     ``rollout_kernel``: 'fused' (one megaroll launch per linesearch
     chunk) or 'megastep' (one megastep launch per horizon step).
-    ``deriv_kernel``: 'lane', the root-seeded structured-IFT lane
-    Jacobian in plain PyTorch; the megajac kernel is the next slice.
+    ``deriv_kernel``: 'megajac' (the CUDA Jacobian kernels, one launch
+    per derivative call) or 'lane' (the plain PyTorch lane Jacobian);
+    root-seeded when the system has ``lane_jac_root_fn``, else
+    cold-Newton through ``lane_jac_fn``.
     ``timer``: optional :class:`~drake_ddp_tpu_torch.utils.timing.
-    PhaseTimer` that gets the rollout, lane_jac, derivs and riccati
-    phases."""
+    PhaseTimer` that gets the rollout, jac, derivs and riccati phases."""
     cfg.derivs.validate()
-    if deriv_kernel != "lane":
-        raise NotImplementedError(
-            f"deriv_kernel={deriv_kernel!r}: only the plain lane Jacobian "
-            "('lane') is ported; the megajac kernel is the next slice")
-    if system.lane_jac_root_fn is None:
-        raise ValueError("system provides no root-seeded lane Jacobian")
     rollout = _rollout_for(system, rollout_kernel)
+    jac, root = _jac_for(system, deriv_kernel)
     N = cfg.num_steps
     B, n = prob.x0.shape
     m = prob.u_init.shape[-1]
     dtype, dev = prob.x0.dtype, prob.x0.device
 
-    # root seeding: the trajectory handed to the derivative phase is the
-    # accepted rollout, whose x_{t+1} IS the converged contact root
-    jac_root = system.lane_jac_root_fn
-
-    def jac_T(x, u, x_next):
-        with phase(timer, "lane_jac"):
-            return jac_root(x, u, x_next)
+    def jac_T(*lanes):
+        with phase(timer, "jac"):
+            return jac(*lanes)
 
     derivs_fn = partial(kp.compute_derivatives_batched, jac_T, cfg.derivs,
-                        root=True)
+                        root=root)
     adaptive = cfg.reg > 0.0
     lane_ix = torch.arange(B, device=dev)
 

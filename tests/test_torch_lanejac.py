@@ -1,7 +1,8 @@
-"""The port's root-seeded structured-IFT lane Jacobian
+"""The port's structured-IFT lane Jacobians
 (drake_ddp_tpu_torch/multibody/lanejac.py) against the JAX package's
-``make_lane_jac(root_seed=True)``, and against central finite
-differences of the port's own plain step.
+``make_lane_jac``, root-seeded on the cheetah and cold-Newton on a small
+model of every contact family, and against central finite differences
+of the port's own plain step.
 
 The finite-difference check runs with a constant stiction schedule
 (stiction_vel at the 5e-2 cap): the implicit-function theorem
@@ -20,7 +21,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from test_torch_model import jax_cheetah_lane_jac, port_system_from_jax
+from test_torch_model import (JAX_QUICK_COMPILE, jax_cheetah_lane_jac,
+                              port_system_from_jax, small_families)
 
 
 def _states(jmc, B, seed):
@@ -76,6 +78,48 @@ def test_root_seeded_lane_jac_matches_finite_differences():
     J = torch.cat([fx, fu], dim=1)
     rel = ((fd - J).abs().max() / J.abs().max()).item()
     assert rel <= 1e-4, rel
+
+
+def test_cold_lane_jac_matches_jax_contact_families():
+    """The cold-Newton Jacobian (root_seed=False: the step's own
+    predictor and continuation Newton, then the IFT at that root) on the
+    sh, sb and bh families and free, revolute, prismatic and fixed
+    joints."""
+    import drake_ddp_tpu.contact.geometry as jgeom
+    import drake_ddp_tpu.multibody.model as jmodel
+    import drake_ddp_tpu_torch.contact.geometry as tgeom
+    import drake_ddp_tpu_torch.multibody.model as tmodel
+    from drake_ddp_tpu.contact.forces import ContactForceParams as JFP
+    from drake_ddp_tpu.multibody.lanejac import make_lane_jac as jmake
+    from drake_ddp_tpu_torch.contact.forces import ContactForceParams as TFP
+    from drake_ddp_tpu_torch.multibody.lanejac import make_lane_jac as tmake
+
+    jm, jc = small_families(jmodel, jgeom)
+    tm, tc = small_families(tmodel, tgeom, device="cpu")
+    dt, iters = 2e-3, 2
+    jjac = jax.jit(jmake(jm, jc, dt, contact_iters=iters,
+                         force_params=JFP(smooth_width=1e-3)),
+                   compiler_options=JAX_QUICK_COMPILE)
+    tjac = tmake(tm, tc, dt, contact_iters=iters,
+                 force_params=TFP(smooth_width=1e-3))
+    rng = np.random.default_rng(5)
+    B = 4
+    x = np.zeros((tm.nq + tm.nv, B))
+    quat = np.array([1.0, 0.0, 0.0, 0.0])[:, None] + 0.15 * \
+        rng.standard_normal((4, B))
+    x[:4] = quat / np.linalg.norm(quat, axis=0)
+    x[6] = 0.04 + np.linspace(-0.01, 0.01, B)        # box face at the ground
+    x[7] = rng.uniform(-np.pi, np.pi, B)             # hip angle
+    x[8] = np.linspace(0.0, 0.2, B)                  # slider through the box
+    x[9:] = 0.5 * rng.standard_normal((tm.nv, B))
+    u = rng.standard_normal((tm.nu, B))
+    want = jjac(jnp.asarray(x), jnp.asarray(u))
+    got = tjac(torch.as_tensor(x), torch.as_tensor(u))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-8,
+                                   atol=1e-8 * np.abs(w).max())
 
 
 def test_inv_small_matches_jax():

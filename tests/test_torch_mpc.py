@@ -107,7 +107,9 @@ def chain():
 
     # compile time only: one jitted solve serves the entry solve and the
     # resolve (the resolve scan of mpc_solve_batched runs as a Python
-    # loop)
+    # loop).  Each solve is waited for before the driver goes on: an
+    # eager op dispatched on its outputs while its host callback runs the
+    # JAX Jacobian deadlocks the two (the test hung at the first solve)
     solve, jitted = jbatched.solve_ilqr_batched, {}
 
     def solve_once(system, cfg_, p, rollout_kernel, deriv_kernel):
@@ -117,7 +119,7 @@ def chain():
                 system, cfg_, q, rollout_kernel=rollout_kernel,
                 deriv_kernel=deriv_kernel),
                 compiler_options=JAX_QUICK_COMPILE)
-        return jitted[key](p)
+        return jax.block_until_ready(jitted[key](p))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jbatched, "solve_ilqr_batched", solve_once)
