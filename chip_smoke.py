@@ -157,11 +157,16 @@ def jac_ops(kd, root):
             + (n + nu) * 2 * c["integ"])
 
 
-def phase_build():
+TEAM_SIZES = (32, 64, 128)   # threads per lane tried for megaroll
+
+
+def phase_build(specs=None):
+    """Kernel libraries (default: every one at its own team size), one
+    nvcc each, all started together."""
     from drake_ddp_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     try:
-        logs = _cuda.build()
+        logs = _cuda.build(specs)
     except RuntimeError as e:
         fail("build", str(e)[-4000:])
     for name, log in logs.items():
@@ -169,6 +174,35 @@ def phase_build():
               "seconds": time.perf_counter() - t0,
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if re.search(r"registers|spill|Compiling|smem", ln)]})
+    return logs
+
+
+def ptxas_summary(log, kernel):
+    """Registers and spill bytes that ptxas reports for ``kernel``."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            block = " ".join(lines[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            return {"registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None}
+    return {"registers": None, "spill_store_bytes": None,
+            "spill_load_bytes": None}
+
+
+def phase_team_config(logs, kd, L):
+    """How megastep and megaroll launch L lanes: threads per lane, lanes
+    per block, dynamic shared bytes per block, with ptxas' registers and
+    spills."""
+    from drake_ddp_tpu_torch.ops import megaroll, megastep
+    for name, mod, kernel in (("megastep", megastep, "megastep_kernel"),
+                              ("megaroll", megaroll, "megaroll_kernel")):
+        emit({"phase": "team_config", "kernel": name, "lanes": L,
+              **mod.launch_config(kd, L),
+              **ptxas_summary(logs[name], kernel)})
 
 
 def cheetah(device, contact_iters=8):
@@ -319,14 +353,18 @@ def rollout_step_check(kd, tapes64, xs, us):
     }
 
 
-def phase_megaroll(results):
+def phase_megaroll(results, logs):
     import torch
+    from drake_ddp_tpu_torch.ops import _cuda
     from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
-    from drake_ddp_tpu_torch.ops.megaroll import megaroll, rollout_plain
+    from drake_ddp_tpu_torch.ops.megaroll import (_launch, launch_config,
+                                                  megaroll, phase_cycles,
+                                                  rollout_plain)
     dev = torch.device("cuda")
     mc, system, model = cheetah(dev)
     kd = kernel_data_for_system(system)
     L, T = 2 * BATCH, 49
+    phase_team_config(logs, kd, L)
     gen = torch.Generator(device=dev).manual_seed(1)
     tapes64 = rollout_tapes(mc, L, T, gen, dev)
     tapes32 = [a.float().contiguous() for a in tapes64]
@@ -344,6 +382,36 @@ def phase_megaroll(results):
           "ms": ms, "plain_ms": plain_ms})
     if not ok:
         fail("megaroll", "kernel outside tolerance")
+    # the team-size sweep that chose the kernel's compile-time team size:
+    # every team size computes the same arithmetic, so each variant must
+    # give the built kernel's rollout bit for bit
+    built = launch_config(kd, L)["threads_per_lane"]
+    phase_build([("megaroll", t) for t in TEAM_SIZES if t != built])
+    libs = {t: _cuda.load("megaroll", None if t == built else t)
+            for t in TEAM_SIZES}
+    sweep, diff = {}, {}
+    for team, lib in libs.items():
+        xs_t, us_t = _launch(lib, kd, *tapes32)
+        diff[str(team)] = max((xs_t - xs_k).abs().max().item(),
+                              (us_t - us_k).abs().max().item())
+        sweep[str(team)] = cuda_ms(lambda: _launch(lib, kd, *tapes32), 3)
+    emit({"phase": "megaroll_team_sweep", "lanes": L, "steps": T,
+          "ms_per_launch_by_threads_per_lane": sweep,
+          "max_abs_diff_vs_built_team": diff,
+          "built_threads_per_lane": built,
+          "lanes_per_block_by_threads_per_lane": {
+              str(t): launch_config(kd, L, lib)["lanes_per_block"]
+              for t, lib in libs.items()}})
+    if any(d != 0.0 for d in diff.values()):
+        fail("megaroll_team_sweep", "a team size differs from the built one")
+    # where a launch's time goes, phase by phase
+    cycles = phase_cycles(kd, *tapes32)
+    total = sum(cycles.values())
+    emit({"phase": "megaroll_phase_clocks", "lanes": L, "steps": T,
+          "threads_per_lane": launch_config(kd, L)["threads_per_lane"],
+          "cycles_per_lane_step": total,
+          "share": {p: c / total for p, c in cycles.items()},
+          "cycles_per_lane_step_by_phase": cycles})
     results["megaroll"] = dict(
         name="megaroll", route="cuda",
         source="drake_ddp_tpu_torch/csrc/megaroll.cu",
@@ -801,10 +869,10 @@ def main():
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    phase_build()
+    logs = phase_build()
     results = {}
     phase_megastep(results)
-    phase_megaroll(results)
+    phase_megaroll(results, logs)
     phase_megajac(results, root=True)
     phase_megajac(results, root=False)
     phase_small_chain()

@@ -14,7 +14,9 @@
 // x (n, L), u (m, L), x_next (n, L) or none -> fx (n, n, L),
 // fu (n, m, L), element (i, d) of lane l at (i * cols + d) * L + l.
 //
-// Two kernels on one stream:
+// Two kernels on one stream, both running the device step of
+// lanestep.cuh with its team of one (Solo: one thread, working set
+// lane-strided in global memory):
 //   - primal, one thread per lane: forward kinematics, mass matrix, bias,
 //     narrowphase and contact Jacobians at (q, v, u); the root v' (root-
 //     seeded: the velocity of x_next; cold: the step's own predictor and
@@ -49,11 +51,11 @@
 // neighbouring lanes of one column.  Each tangent thread recomputes in
 // its dual pass the primal kinematics it needs rather than reading
 // them: that costs operations and saves a second store of the working
-// set.  The price is scratch: a Lane<Dual> working set per thread (48 KB
-// at the flagship sizes), lane-strided over all threads (4.2 GB at 1792
-// lanes), which does not fit in L2; shared-memory tiles and a smaller
-// dual working set are later work.  The ragged lane edge is masked, not
-// padded.
+// set.  The price is scratch: a Lane<Dual> working set per thread (the
+// team of one's layout, 48 KB at the flagship sizes), lane-strided over
+// all threads (4.3 GB at 1792 lanes), which does not fit in L2; shared-
+// memory tiles and a smaller dual working set are later work.  The
+// ragged lane edge is masked, not padded.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast math), loaded with ctypes.
@@ -70,24 +72,25 @@ __global__ void megajac_primal_kernel(const StepTable* __restrict__ table,
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
   const StepTable& T = *table;
-  const Layout Y = make_layout(T);
+  const Layout Y = make_layout<Solo>(T);
   const Lane<double> s{scratch + lane, L};
   const int nq = T.nq, nv = T.nv, n = nq + nv, w = nv + 1;
   const size_t Ls = (size_t)L;
   for (int i = 0; i < n; ++i) s[Y.X + i] = x[i * Ls + lane];
   for (int i = 0; i < T.nu; ++i) s[Y.U + i] = u[i * Ls + lane];
-  fk(T, Y, s);
-  mass_matrix(T, Y, s);
-  bias_and_tau(T, Y, s);
+  const Solo tm{};
+  fk(tm, T, Y, s);
+  mass_matrix(tm, T, Y, s);
+  bias_and_tau(tm, T, Y, s);
   if (x_next) {
     // root-seeded: the rollout's next state is the root (no Newton)
-    if (T.has_contact) contact_primal(T, Y, s);
+    if (T.has_contact) contact_primal(tm, T, Y, s);
     for (int k = 0; k < nv; ++k) s[Y.VP + k] = x_next[(nq + k) * Ls + lane];
   } else {
-    next_velocity(T, Y, s);
+    next_velocity(tm, T, Y, s);
   }
   if (T.has_contact) {
-    residual(T, Y, s, Y.VP, T.stiction_vel, true, Y.RES);
+    residual(tm, T, Y, s, Y.VP, T.stiction_vel, true, Y.RES);
   } else {
     for (int i = 0; i < nv; ++i)
       for (int j = 0; j < nv; ++j) s[Y.G + i * w + j] = s[Y.M + i * nv + j];
@@ -109,7 +112,7 @@ __global__ void megajac_tangent_kernel(const StepTable* __restrict__ table,
   if (t >= L * ndir) return;
   const int d = t / L, lane = t - d * L;       // direction-major threads
   const StepTable& T = *table;
-  const Layout Y = make_layout(T);
+  const Layout Y = make_layout<Solo>(T);
   const Lane<Dual> s{scratch + t, L * ndir};
   const int nq = T.nq, nv = T.nv, nu = T.nu, n = nq + nv;
   const size_t Ls = (size_t)L;
@@ -120,12 +123,13 @@ __global__ void megajac_tangent_kernel(const StepTable* __restrict__ table,
   for (int k = 0; k < nv; ++k) s[Y.VP + k] = Dual(vp[k * Ls + lane]);
   if (d < n) {
     // dres along e_d with (v' and u) held primal; its tangent only
-    fk(T, Y, s);
-    mass_matrix(T, Y, s);
-    bias_and_tau(T, Y, s);
+    const Solo tm{};
+    fk(tm, T, Y, s);
+    mass_matrix(tm, T, Y, s);
+    bias_and_tau(tm, T, Y, s);
     const bool contact = d < nq && T.has_contact;
-    if (contact) contact_primal(T, Y, s);
-    residual(T, Y, s, Y.VP, T.stiction_vel, false, Y.RES, contact);
+    if (contact) contact_primal(tm, T, Y, s);
+    residual(tm, T, Y, s, Y.VP, T.stiction_vel, false, Y.RES, contact);
     for (int i = 0; i < nv; ++i) {
       double acc = 0.;
       for (int j = 0; j < nv; ++j) acc += G[(i * nv + j) * Ls] * s[Y.RES + j].d;
@@ -136,7 +140,7 @@ __global__ void megajac_tangent_kernel(const StepTable* __restrict__ table,
     const int a = T.act_vdof[d - n];
     for (int i = 0; i < nv; ++i) s[Y.VP + i].d = T.dt * G[(i * nv + a) * Ls];
   }
-  integrate(T, Y, s, Y.VP);
+  integrate(Solo(), T, Y, s, Y.VP);
   for (int i = 0; i < n; ++i) {
     const float g = (float)s[Y.XN + i].d;
     if (d < n)

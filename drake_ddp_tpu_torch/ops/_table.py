@@ -37,11 +37,13 @@ _i32, _f32 = ctypes.c_int32, ctypes.c_float
 class StepTable(ctypes.Structure):
     _fields_ = [(k, _i32) for k in ("nb", "nq", "nv", "nu", "nc", "ns",
                                     "nbox", "nh", "contact_iters",
-                                    "has_contact")] + [
+                                    "has_contact", "nlevels")] + [
         ("parent", _i32 * MAX_BODIES),
         ("jtype", _i32 * MAX_BODIES),
         ("q_start", _i32 * MAX_BODIES),
         ("v_start", _i32 * MAX_BODIES),
+        ("level_start", _i32 * (MAX_BODIES + 1)),
+        ("level_body", _i32 * MAX_BODIES),
         ("act_vdof", _i32 * MAX_U),
         ("dof_parent", _i32 * MAX_V),
         ("sph_body", _i32 * MAX_SPHERES),
@@ -103,6 +105,18 @@ def _check(name, count, limit):
                          f"limit {limit} (csrc/lanestep.cuh)")
 
 
+def tree_levels(parent):
+    """The bodies by depth in the kinematic tree (parents first): those of
+    depth d are ``bodies[starts[d]:starts[d + 1]]``.  The device step
+    runs the bodies of one depth in parallel."""
+    depth = []
+    for b, p in enumerate(parent):
+        depth.append(0 if p < 0 else depth[p] + 1)
+    bodies = sorted(range(len(parent)), key=lambda b: (depth[b], b))
+    counts = np.bincount(depth, minlength=max(depth, default=-1) + 1)
+    return [0] + np.cumsum(counts).tolist(), bodies
+
+
 def pack_step_table(model: MultibodyModel, contact: Optional[ContactModel],
                     dt: float, contact_iters: int,
                     force_params: ContactForceParams) -> StepTable:
@@ -123,6 +137,10 @@ def pack_step_table(model: MultibodyModel, contact: Optional[ContactModel],
                        ("q_start", model.q_start), ("v_start", model.v_start),
                        ("act_vdof", model.actuated_vdof)):
         _fill(getattr(T, name), np.asarray(vals, np.int32))
+    starts, bodies = tree_levels(model.parent)
+    T.nlevels = len(starts) - 1
+    _fill(T.level_start, np.asarray(starts, np.int32))
+    _fill(T.level_body, np.asarray(bodies, np.int32))
     dof_body = vdof_body(model)
     _fill(T.dof_parent, np.asarray([model.parent[b] for b in dof_body],
                                    np.int32))
@@ -227,7 +245,7 @@ class StepKernelData:
 
     @property
     def sizes(self):
-        """(nb, nq, nv, nu, nc, ns, nbox) for the scratch layout."""
+        """(nb, nq, nv, nu, nc, ns, nbox) for the working-set layout."""
         s = self._struct
         return (s.nb, s.nq, s.nv, s.nu, s.nc, s.ns, s.nbox)
 
@@ -241,12 +259,6 @@ class StepKernelData:
             self._tables[device] = torch.frombuffer(
                 raw, dtype=torch.uint8).to(device)
         return self._tables[device]
-
-    def scratch(self, L: int, device: torch.device, lib) -> torch.Tensor:
-        """Lane-strided per-lane working set: element i of lane l at
-        scratch[i * L + l]."""
-        per_lane = lib.ddp_scratch_per_lane(*self.sizes)
-        return torch.empty(per_lane * L, dtype=torch.float32, device=device)
 
 
 def kernel_data_for_system(system) -> StepKernelData:

@@ -53,7 +53,7 @@ def megajac(kd: StepKernelData, x: torch.Tensor, u: torch.Tensor,
     lib = _cuda.load("megajac")
     table = kd.table(dev, lib)
     ndir = n + m
-    per_lane = lib.ddp_scratch_per_lane(*kd.sizes)
+    per_lane = lib.ddp_scratch_per_lane(*kd.sizes, 1)   # team of one
     # the kernels compute in float64 (csrc/megajac.cu says why): a
     # working set per lane, and one of Duals {value, tangent} per (lane,
     # direction)
