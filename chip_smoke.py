@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``drake_ddp_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card (megastep, megaroll,
-and megajac root-seeded and cold-Newton), checks a small MPC chain
+and megajac root-seeded and cold-Newton, with its primal's team-size
+sweep and the time of each of its two kernels), checks a small MPC chain
 against the plain float64 chain on the CPU, and drives the flagship
 batched mini-cheetah MPC (n 37, m 12, N 50, 16 contacts, contact_iters
 8, setInterval-8, ls_parallel 2, max_iters 8, batch 256) through
@@ -157,7 +158,7 @@ def jac_ops(kd, root):
             + (n + nu) * 2 * c["integ"])
 
 
-TEAM_SIZES = (32, 64, 128)   # threads per lane tried for megaroll
+TEAM_SIZES = (32, 64, 128)   # threads per lane tried for megaroll and megajac
 
 
 def phase_build(specs=None):
@@ -534,7 +535,67 @@ def phase_megajac(results, root):
                           "tools/probe_megajac_compile.py:91"),
                 max_abs_err=report["max_abs_err_vs_plain_f32"], ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, lanes=L, check=ok)
+                library_ms=None, lanes=L, check=ok, call_memory_bytes=peak)
+
+
+MEGAJAC_KERNELS = ("megajac_primal_kernel", "megajac_tangent_kernel")
+
+
+def phase_megajac_team(results, logs):
+    """megajac's two kernels at the flagship's derivative call: how the
+    team primal launches (threads per lane, lanes per block, shared bytes,
+    ptxas' registers and spills of both kernels), each kernel's time by
+    CUDA events, root-seeded and cold, and the primal's team-size sweep,
+    which fails unless every team size gives G^-1, fx and fu bit for
+    bit."""
+    import torch
+    from drake_ddp_tpu_torch.ops import _cuda
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import (_buffers, _launch, _primal,
+                                                 _tangent, launch_config)
+    dev = torch.device("cuda")
+    mc, system, _ = cheetah(dev)
+    kd = kernel_data_for_system(system)
+    L = JAC_LANES
+    cfg = launch_config(kd, L)
+    emit({"phase": "team_config", "kernel": "megajac", "lanes": L, **cfg,
+          **{k.replace("megajac_", ""): ptxas_summary(logs["megajac"], k)
+             for k in MEGAJAC_KERNELS}})
+    built = cfg["threads_per_lane"]
+    libs = {t: _cuda.load("megajac", None if t == built else t)
+            for t in TEAM_SIZES}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x64, u64 = seeded_states(mc, L, gen, dev, torch.float64)
+    x32, u32 = x64.float(), u64.float()
+    xn32 = kd.step(x64, u64).float()
+    for root, name in ((True, "megajac"), (False, "megajac_cold")):
+        xn = xn32 if root else None
+        lib = libs[built]
+        b = _buffers(kd, lib, L, dev)
+        primal_ms = cuda_ms(lambda: _primal(lib, kd, b, x32, u32, xn), 3)
+        tangent_ms = cuda_ms(lambda: _tangent(lib, kd, b), 3)
+        want = _launch(lib, kd, x32, u32, xn)
+        sweep, diff = {}, {}
+        for team, lib_t in libs.items():
+            got = _launch(lib_t, kd, x32, u32, xn)
+            diff[str(team)] = max((g - w).abs().max().item()
+                                  for g, w in zip(got, want))
+            bt = _buffers(kd, lib_t, L, dev)
+            sweep[str(team)] = cuda_ms(
+                lambda: _primal(lib_t, kd, bt, x32, u32, xn), 3)
+        torch.cuda.synchronize()
+        emit({"phase": "megajac_team_sweep", "root_seeded": root,
+              "lanes": L, "primal_ms": primal_ms, "tangent_ms": tangent_ms,
+              "primal_ms_by_threads_per_lane": sweep,
+              "max_abs_diff_vs_built_team": diff,
+              "built_threads_per_lane": built,
+              "lanes_per_block_by_threads_per_lane": {
+                  str(t): launch_config(kd, L, lib_t)["lanes_per_block"]
+                  for t, lib_t in libs.items()}})
+        if any(d != 0.0 for d in diff.values()):
+            fail("megajac_team_sweep", "a team size differs from the built "
+                                       "one (G^-1, fx or fu)")
+        results[name].update(primal_ms=primal_ms, tangent_ms=tangent_ms)
 
 
 def mpc_setup(mc, system, N, B, contact_iters, max_iters, minN, device,
@@ -869,12 +930,18 @@ def main():
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    logs = phase_build()
     results = {}
+    # every library, and the team-size variants the sweeps compare (the
+    # built team size is DDP_TEAM = 128), in one parallel build
+    from drake_ddp_tpu_torch.ops._cuda import SOURCES
+    logs = phase_build(list(SOURCES) + [
+        (name, t) for name in ("megaroll", "megajac") for t in TEAM_SIZES
+        if t != 128])
     phase_megastep(results)
     phase_megaroll(results, logs)
     phase_megajac(results, root=True)
     phase_megajac(results, root=False)
+    phase_megajac_team(results, logs)
     phase_small_chain()
     phase_flagship(results)
     print(card)

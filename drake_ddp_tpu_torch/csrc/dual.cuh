@@ -14,6 +14,11 @@
 //
 // Kinks follow the plain PyTorch version's derivatives: |x| has tangent
 // sign(x) dx, 0 at x = 0; sign has tangent 0.
+//
+// TangentView is the working set of megajac's tangent passes: it reads
+// a Dual whose value comes from the team primal's store (lane-strided,
+// shared by the lane's directions) and whose tangent comes from the
+// thread's own scratch, and a write keeps only the tangent.
 
 #pragma once
 
@@ -70,3 +75,48 @@ __device__ inline Dual s_abs(Dual x) {
   return Dual(fabs(x.v), x.v > 0. ? x.d : (x.v < 0. ? -x.d : 0.));
 }
 __device__ inline Dual s_sign(Dual x) { return Dual(s_sign(x.v), 0.); }
+
+// One field of a TangentView.  Assigning or adding a Dual stores or adds
+// its tangent only: the value stays the primal's.  That is exact for
+// every field that megajac's tangent pass reads as a factor, since the
+// pass writes it once with the value the primal stored; fields the step
+// writes more than once (M, TMP, TC) are only ever summed into, where a
+// tangent needs no value.  `zero`: a field constant along this
+// direction, whose tangent reads as 0 without touching the scratch.
+// (Testing a null tangent pointer instead, with writes to it dropped,
+// ran the tangent passes 1.4x slower on an H100: PERF.md.)
+struct TangentRef {
+  const double* p;
+  double* t;
+  bool zero;
+  __device__ operator Dual() const { return Dual(*p, zero ? 0. : *t); }
+  __device__ const TangentRef& operator=(Dual b) const {
+    *t = b.d;
+    return *this;
+  }
+  __device__ const TangentRef& operator=(const TangentRef& b) const {
+    return *this = Dual(b);
+  }
+  __device__ const TangentRef& operator+=(Dual b) const {
+    return *this = Dual(*this) + b;
+  }
+  __device__ const TangentRef& operator-=(Dual b) const {
+    return *this = Dual(*this) - b;
+  }
+};
+
+// Element i: value at p[i * Lp] (the primal's store); tangent at
+// t[(i - base) * Lt] (this thread's scratch), zero below `base`.  The
+// scratch has no room below base, so a pass must not write a field
+// there: the step writes those fields only in fk, mass_matrix and
+// contact_primal, which run in a q-direction alone, whose base is 0.
+struct TangentView {
+  using scalar = Dual;
+  const double* p;
+  double* t;
+  int Lp, Lt, base;
+  __device__ TangentRef operator[](int i) const {
+    return TangentRef{p + (size_t)i * Lp, t + (ptrdiff_t)(i - base) * Lt,
+                      i < base};
+  }
+};

@@ -34,12 +34,13 @@
 // per-thread loop and sync() is nothing) or Team<N> (N = 32: one warp,
 // __syncwarp; N = 64 or 128: several warps of one block, a named barrier
 // per lane).  The working set is a view: Local (contiguous, in shared
-// memory: megaroll and megastep, which also copy the table there) or
-// Lane (lane-strided in global memory: megajac, whose float64 and dual
-// working sets do not fit an SM).  The step is a template over the
-// scalar type S too, so that the Jacobian kernel (megajac.cu) runs the
-// same code on the forward-mode dual number of dual.cuh: S needs + - * /,
-// the s_* math functions below and val() for comparisons.
+// memory, with the table copied there: megaroll, megastep and megajac's
+// float64 primal) or dual.cuh's TangentView (megajac's tangent passes:
+// primal values read from the primal's store, tangents in the thread's
+// own global scratch).  The step is a template over the scalar type S
+// too, so that the Jacobian kernel (megajac.cu) runs the same code on the
+// forward-mode dual number of dual.cuh: S needs + - * /, the s_* math
+// functions below and val() for comparisons.
 
 #pragma once
 
@@ -118,15 +119,22 @@ struct StepTable {
 struct Layout {
   int R, P, AX, OR, COMW, IW, W, AL, ALT, AO, FB, TB, M, LC, X, U, XN, TAU,
       TMP, VP, DV, RES, R1, VP1, TC, G, SQ, JC, PHI, NRM, PNT, K1, FC,
-      DC, EC, CEN, BR, BP, total;
+      DC, EC, CEN, BR, BP, VC, TAN, total;
 };
 
-// The working set of a team of several threads (`team`) or of the team
-// of one.  Only a team stores every contact's f, D and D Jc (contact_tau);
-// the team of one keeps f and D in registers and D Jc of one contact.
+// The working set of one lane: a team step holds all of it in shared
+// memory (megaroll, megastep, megajac's primal).  The order serves
+// megajac's tangent passes (one thread, dual.cuh's TangentView), which
+// keep only the tangents of the fields below TAN: first what is constant
+// in v (kinematics, mass matrix, contact geometry: below VC, a velocity
+// direction reads a zero tangent there), then the rest of what a
+// tangent pass writes, then what only a primal needs (the Cholesky
+// factor, the Newton matrix, the Newton's own vectors, every contact's
+// f, D and D Jc).  Every field has its own room: a tangent pass reads
+// the primal values of the bias's per-body force and torque, which the
+// cold primal's Cholesky would otherwise overwrite.
 __host__ __device__ inline Layout make_layout(int nb, int nq, int nv, int nu,
-                                              int nc, int ns, int nbox,
-                                              bool team) {
+                                              int nc, int ns, int nbox) {
   Layout y;
   int o = 0;
   y.R = o; o += 9 * nb;
@@ -135,49 +143,46 @@ __host__ __device__ inline Layout make_layout(int nb, int nq, int nv, int nu,
   y.OR = o; o += 3 * nv;
   y.COMW = o; o += 3 * nb;
   y.IW = o; o += 9 * nb;
+  y.M = o; o += nv * nv;
+  y.JC = o; o += nc * 3 * nv;
+  y.PHI = o; o += nc;
+  y.NRM = o; o += 3 * nc;
+  y.PNT = o; o += 3 * nc;
+  y.K1 = o; o += nc;
+  y.CEN = o; o += 3 * ns;
+  y.BR = o; o += 9 * nbox;
+  y.BP = o; o += 3 * nbox;
+  y.VC = o;
   y.W = o; o += 3 * nb;
   y.AL = o; o += 3 * nb;
   y.ALT = o; o += 3 * nv;
   y.AO = o; o += 3 * nb;
-  y.M = o; o += nv * nv;
-  // the Cholesky factor; bias_and_tau's per-body force and torque share
-  // its room, since every chol_solve writes the factor before reading it
-  y.LC = o;
-  y.FB = o;
-  y.TB = o + 3 * nb;
-  o += nv * nv > 6 * nb ? nv * nv : 6 * nb;
+  y.FB = o; o += 3 * nb;
+  y.TB = o; o += 3 * nb;
   y.X = o; o += nq + nv;
   y.U = o; o += nu;
   y.XN = o; o += nq + nv;
   y.TAU = o; o += nv;
   y.TMP = o; o += nv;
   y.VP = o; o += nv;
-  y.DV = o; o += nv;
   y.RES = o; o += nv;
+  y.TC = o; o += nv;
+  y.SQ = o; o += 1;             // |res|^2 of the last residual
+  y.TAN = o;
+  y.LC = o; o += nv * nv;       // the Cholesky factor
+  y.DV = o; o += nv;
   y.R1 = o; o += nv;
   y.VP1 = o; o += nv;
-  y.TC = o; o += nv;
   y.G = o; o += nv * (nv + 1);
-  y.SQ = o; o += 1;             // |res|^2 of the last residual
-  y.JC = o; o += nc * 3 * nv;
-  y.PHI = o; o += nc;
-  y.NRM = o; o += 3 * nc;
-  y.PNT = o; o += 3 * nc;
-  y.K1 = o; o += nc;
-  y.FC = o; o += team ? 3 * nc : 0;        // contact forces f
-  y.DC = o; o += team ? 9 * nc : 0;        // and their Jacobians D = df/dv_rel
-  y.EC = o; o += (team ? nc : 1) * 3 * nv; // D Jc, per contact
-  y.CEN = o; o += 3 * ns;
-  y.BR = o; o += 9 * nbox;
-  y.BP = o; o += 3 * nbox;
+  y.FC = o; o += 3 * nc;        // contact forces f
+  y.DC = o; o += 9 * nc;        // and their Jacobians D = df/dv_rel
+  y.EC = o; o += nc * 3 * nv;   // D Jc, per contact
   y.total = o;
   return y;
 }
 
-// The working set of the team type Tm (Solo, Team<N>) for the table T.
-template <class Tm>
 __host__ __device__ inline Layout make_layout(const StepTable& T) {
-  return make_layout(T.nb, T.nq, T.nv, T.nu, T.nc, T.ns, T.nbox, Tm::size > 1);
+  return make_layout(T.nb, T.nq, T.nv, T.nu, T.nc, T.ns, T.nbox);
 }
 
 // ---------------------------------------------------------------------------
@@ -217,15 +222,6 @@ struct Team {
     else
       asm volatile("barrier.sync %0, %1;" ::"r"(bar), "r"(N) : "memory");
   }
-};
-
-// Lane-strided view: element i at p[i * L].
-template <typename S>
-struct Lane {
-  using scalar = S;
-  S* p;
-  int L;
-  __device__ S& operator[](int i) const { return p[(size_t)i * L]; }
 };
 
 // Contiguous view: element i at p[i].
@@ -716,31 +712,30 @@ __device__ void gauss_jordan(const Tm& tm, const Layout& Y, const W& s,
 // Unpivoted Gauss-Jordan inverse of the nv x nv block at Y.G (row stride
 // nv + 1), as lanejac.inv_small_T: eliminate on [G | I], then divide each
 // row of the right half by its diagonal.  The right half lives in `inv`
-// (element (i, j) at inv[i * nv + j]); G is overwritten.  The pivot row
-// is skipped, as the reference updates it with a zero factor.  Per
-// thread: only megajac's primal kernel, one thread per lane, runs it.
-template <class W>
-__device__ void gauss_jordan_inverse(const Layout& Y, const W& s, int nv,
-                                     const W& inv) {
+// at `inv` of the working set (element (i, j) at inv + i nv + j); G is
+// overwritten.  The pivot row is skipped, as the reference updates it
+// with a zero factor.  As gauss_jordan: per pivot each row by its own
+// thread, one sync per pivot.  megajac's primal runs it.
+template <class Tm, class W>
+__device__ void gauss_jordan_inverse(const Tm& tm, const Layout& Y,
+                                     const W& s, int nv, int inv) {
   using S = typename W::scalar;
   const int w = nv + 1;
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j < nv; ++j) inv[i * nv + j] = S(i == j ? 1.f : 0.f);
+  TEAM_FOR2(i, j, nv, nv) s[inv + i * nv + j] = S(i == j ? 1.f : 0.f);
+  tm.sync();
   for (int k = 0; k < nv; ++k) {
     const S pivot = s[Y.G + k * w + k];
-    for (int i = 0; i < nv; ++i) {
+    TEAM_FOR(i, nv) {
       if (i == k) continue;
       const S f = s[Y.G + i * w + k] / pivot;
-      for (int j = 0; j < nv; ++j)
-        s[Y.G + i * w + j] = s[Y.G + i * w + j] - f * s[Y.G + k * w + j];
-      for (int j = 0; j < nv; ++j)
-        inv[i * nv + j] = inv[i * nv + j] - f * inv[k * nv + j];
+      row_axpy(s, Y.G + i * w, Y.G + k * w, f, nv);
+      row_axpy(s, inv + i * nv, inv + k * nv, f, nv);
     }
+    tm.sync();
   }
-  for (int i = 0; i < nv; ++i) {
-    const S diag = s[Y.G + i * w + i];
-    for (int j = 0; j < nv; ++j) inv[i * nv + j] = inv[i * nv + j] / diag;
-  }
+  TEAM_FOR2(i, j, nv, nv)
+    s[inv + i * nv + j] = s[inv + i * nv + j] / s[Y.G + i * w + i];
+  tm.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1219,24 +1214,13 @@ __device__ void lane_step(const Tm& tm, const StepTable& T, const Layout& Y,
 // launch configuration
 // ---------------------------------------------------------------------------
 
-// Threads per block for a kernel of one thread per lane (megajac's
-// primal): as few as spread the lanes over every SM, since each lane's
-// chain sets the time and fewer lanes per SM keep their working sets in
-// the SM's L1.
-inline int ddp_block_threads(int L) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int t = (L + sms - 1) / sms;
-  return t < 1 ? 1 : (t > 32 ? 32 : t);
-}
-
 // Bytes of shared memory the table takes in a team kernel (16-aligned).
 __host__ __device__ inline int ddp_table_smem() {
   return ((int)sizeof(StepTable) + 15) & ~15;
 }
 
-// Floats per lane in a team kernel's shared memory (16-byte multiples).
+// Scalars per lane in a team kernel's shared memory (a multiple of 4, so
+// 16-byte aligned for float and double).
 inline int ddp_lane_floats(int per_lane) { return (per_lane + 3) & ~3; }
 
 // Most lanes in one block of a team kernel: the flagship's 512 lanes over
@@ -1248,21 +1232,21 @@ inline int ddp_lane_floats(int per_lane) { return (per_lane + 3) & ~3; }
 // The launch of a team kernel: one lane per team of `team` threads, as
 // few lanes per block as spread L lanes over every SM, but no more than
 // DDP_MAX_BLOCK_LANES and the shared memory (the table once per block,
-// then each lane's working set) allow.  Sets the kernel's dynamic shared
-// memory limit and shrinks the block until one fits an SM's registers.
-// Returns a CUDA error code (0 = ok; cudaErrorInvalidValue when one lane
-// does not fit).
+// then each lane's working set of per_lane scalars of scalar_bytes each)
+// allow.  Sets the kernel's dynamic shared memory limit and shrinks the
+// block until one fits an SM's registers.  Returns a CUDA error code (0 =
+// ok; cudaErrorInvalidValue when one lane does not fit).
 struct TeamLaunch {
   int lanes_per_block, blocks, threads, smem;
 };
 
 inline int ddp_team_launch(const void* kernel, int team, int L, int per_lane,
-                           TeamLaunch* out) {
+                           TeamLaunch* out, int scalar_bytes = 4) {
   int dev = 0, sms = 132, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int lane_bytes = 4 * ddp_lane_floats(per_lane);
+  const int lane_bytes = scalar_bytes * ddp_lane_floats(per_lane);
   const int table = ddp_table_smem();
   if (table + lane_bytes > optin) return (int)cudaErrorInvalidValue;
   int lpb = (L + sms - 1) / sms;
@@ -1302,11 +1286,10 @@ __device__ inline void ddp_copy_table(const StepTable* table,
 // Host-side size queries shared by the kernel libraries.
 extern "C" int ddp_table_bytes() { return (int)sizeof(StepTable); }
 
-// Scalars of one lane's working set: of the team of one when `solo`
-// (megajac), else of a team of several threads (megaroll, megastep).
+// Scalars of one lane's working set.
 extern "C" int ddp_scratch_per_lane(int nb, int nq, int nv, int nu, int nc,
-                                    int ns, int nbox, int solo) {
-  return make_layout(nb, nq, nv, nu, nc, ns, nbox, !solo).total;
+                                    int ns, int nbox) {
+  return make_layout(nb, nq, nv, nu, nc, ns, nbox).total;
 }
 
 // Shared memory one block may use on the current device (bytes).

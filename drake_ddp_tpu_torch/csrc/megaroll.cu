@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(DDP_MAX_BLOCK_LANES * Tm::size)
   if (lane >= L) return;  // the whole team: nothing below syncs the block
   const Tm tm((int)threadIdx.x % Tm::size, slot + 1);
   const StepTable& T = *(const StepTable*)smem;
-  const Layout Y = make_layout<Tm>(T);
+  const Layout Y = make_layout(T);
   float* ws = (float*)(smem + ddp_table_smem()) + (size_t)slot * lane_floats;
   const Local<float> s{ws};
   const int n = T.nq + T.nv, m = T.nu;

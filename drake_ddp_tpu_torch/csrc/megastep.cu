@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(DDP_MAX_BLOCK_LANES * DDP_TEAM)
   using Tm = Team<DDP_TEAM>;
   const Tm tm((int)threadIdx.x % DDP_TEAM, slot + 1);
   const StepTable& T = *(const StepTable*)smem;
-  const Layout Y = make_layout<Tm>(T);
+  const Layout Y = make_layout(T);
   const Local<float> s{(float*)(smem + ddp_table_smem()) +
                        (size_t)slot * lane_floats};
   const int n = T.nq + T.nv;

@@ -6,9 +6,9 @@ Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 into ``build/drake_ddp_tpu_torch/`` at the repository root; the library
 name carries a hash of its sources, so an edited source is rebuilt and
 an unchanged one is reused.  No fast math: stiff contact amplifies
-rounding.  megaroll and megastep take their team size (threads per lane)
-at compile time; ``team`` builds a variant with another one, for the
-sweep that chose it (``chip_smoke.py``).
+rounding.  megaroll, megastep and megajac's primal take their team size
+(threads per lane) at compile time; ``team`` builds a variant with
+another one, for the sweep that chose it (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -39,11 +39,15 @@ ENTRY_POINTS = {
                  "megastep_config": [_I, _I, _P]},
     "megaroll": {"megaroll_launch": [_P] * 9 + [_I] * 5 + [_P],
                  "megaroll_config": [_I] * 4 + [_P]},
-    "megajac": {"megajac_launch": [_P] * 10 + [_I, _I, _P]},
+    "megajac": {"megajac_primal_launch": [_P] * 6 + [_I, _I, _P],
+                "megajac_tangent_launch": [_P] * 6 + [_I, _I, _P],
+                "megajac_config": [_I, _I, _P],
+                "megajac_store_per_lane": [_I] * 7,
+                "megajac_scratch_per_lane": [_I] * 7},
     "megaroll_clocks": {"megaroll_clocks_launch": [_P] * 9 + [_I] * 5
                         + [_P, _P]},
 }
-SIZE_QUERIES = {"ddp_table_bytes": [], "ddp_scratch_per_lane": [_I] * 8,
+SIZE_QUERIES = {"ddp_table_bytes": [], "ddp_scratch_per_lane": [_I] * 7,
                 "ddp_smem_optin": []}
 
 # a library: its name, or (name, team size) for a team-size variant

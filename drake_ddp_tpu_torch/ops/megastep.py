@@ -33,19 +33,26 @@ def _check_lanes(name, t, rows, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def team_lane_floats(kd: StepKernelData, lib, extra: int = 0) -> int:
-    """Scalars of one lane's working set in a team kernel (the
-    ``Layout`` of ``csrc/lanestep.cuh``).  Raises ValueError, before any
-    launch, when the table and one lane's working set plus ``extra``
-    floats do not fit the shared memory of one block."""
-    per_lane = lib.ddp_scratch_per_lane(*kd.sizes, 0)
+def check_fits_shared(lib, scalars: int, scalar_bytes: int = 4):
+    """Raises ValueError, before any launch, when the step table and one
+    lane's working set of ``scalars`` scalars of ``scalar_bytes`` bytes
+    each do not fit the shared memory of one block (``ddp_team_launch``
+    of ``csrc/lanestep.cuh``)."""
     need = (-(-lib.ddp_table_bytes() // 16) * 16
-            + 4 * (-(-(per_lane + extra) // 4) * 4))
+            + scalar_bytes * (-(-scalars // 4) * 4))
     limit = lib.ddp_smem_optin()
     if need > limit:
         raise ValueError(
             f"the step table and one lane's working set take {need} bytes "
             f"of shared memory; a block of this card has {limit}")
+
+
+def team_lane_floats(kd: StepKernelData, lib, extra: int = 0) -> int:
+    """Scalars of one lane's working set in a team step kernel (the
+    ``Layout`` of ``csrc/lanestep.cuh``), checked with ``extra`` floats
+    beside it by :func:`check_fits_shared`."""
+    per_lane = lib.ddp_scratch_per_lane(*kd.sizes)
+    check_fits_shared(lib, per_lane + extra)
     return per_lane
 
 

@@ -234,3 +234,61 @@ def test_megajac_rejects_what_it_does_not_take(card):
         megajac(kd, x, u.cpu())
     with pytest.raises(ValueError, match="lanes"):
         megajac(kd, x, u[:, :3].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root", [True, False], ids=["root", "cold"])
+@pytest.mark.parametrize("L", [1, 3, 133, 1100])
+def test_megajac_team_edges(card, L, root):
+    """The team primal with fewer lanes than SMs (one lane a block), a
+    ragged L whose last block is partly empty (133 lanes, 2 a block), and
+    more lanes than 4 a block on every SM (blocks capped at the kernel's
+    launch bounds of 4 lanes)."""
+    from drake_ddp_tpu_torch.examples import mini_cheetah as mc
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import launch_config
+
+    system, _ = mc.build_system(mc.Config(contact_iters=8), device=card)
+    kd = kernel_data_for_system(system)
+    cfg = launch_config(kd, L)
+    assert cfg["blocks"] * cfg["lanes_per_block"] >= L
+    assert cfg["lanes_per_block"] <= 4
+    x64, u64 = _cheetah_states(mc, L, 6, card)
+    _run_and_check(kd, x64, u64, root)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root", [True, False], ids=["root", "cold"])
+def test_megajac_without_contact(card, root):
+    """A model without contact: G is the mass matrix."""
+    import drake_ddp_tpu_torch.contact.geometry as geom
+    import drake_ddp_tpu_torch.multibody.model as model_mod
+    from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+
+    model, _ = small_families(model_mod, geom, device=card)
+    system = make_multibody_system(model, None, 2e-3, contact_iters=2)
+    x64, u64 = _family_states(model, 64, 7, card)
+    _run_and_check(kernel_data_for_system(system), x64, u64, root)
+
+
+@pytest.mark.cuda
+def test_megajac_raises_when_a_lane_does_not_fit_shared_memory(card):
+    """A primal working set larger than a block's shared memory raises
+    before any launch or allocation: there is no global-memory
+    fallback."""
+    from drake_ddp_tpu_torch.examples import mini_cheetah as mc
+    from drake_ddp_tpu_torch.ops._table import StepKernelData
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+
+    system, _ = mc.build_system(mc.Config(contact_iters=8), device=card)
+    model, contact = system.params
+    kd = StepKernelData(model, contact, system.dt, contact_iters=8)
+    kd._struct.nc = 2000       # 2000 contacts: Jc alone would be 864 KB
+    x, u = (a.float() for a in _cheetah_states(mc, 8, 5, card))
+    before = megajac.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        megajac(kd, x, u, x)
+    with pytest.raises(ValueError, match="shared memory"):
+        megajac(kd, x, u)
+    assert megajac.launches == before
