@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of drake_ddp_tpu: batched contact-implicit iLQR/MPC
-on an NVIDIA Hopper card.
+"""PyTorch/CUDA port of drake_ddp_tpu: contact-implicit iLQR/MPC on an
+NVIDIA Hopper card.
 
 The package mirrors the JAX package's layout module for module
 (``drake_ddp_tpu_torch/multibody/lanestep.py`` is the counterpart of
@@ -8,7 +8,10 @@ The package mirrors the JAX package's layout module for module
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU with ``device="cpu"``; the CUDA kernels under ``csrc/`` are
-built at first use into ``build/drake_ddp_tpu_torch/``.
+built at first use into ``build/drake_ddp_tpu_torch/``.  The per-scenario
+surface is :class:`IterativeLinearQuadraticRegulator` (and
+:func:`solve_ilqr` under it); the batched one is
+:func:`mpc_solve_batched` and :func:`solve_ilqr_batched`.
 """
 
 import torch
@@ -22,5 +25,35 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from drake_ddp_tpu_torch._device import resolve_device  # noqa: E402
+from drake_ddp_tpu_torch.dynamics.base import DiscreteSystem  # noqa: E402
+from drake_ddp_tpu_torch.mpc.driver import (  # noqa: E402
+    MPCConfig,
+    mpc_solve_batched,
+)
+from drake_ddp_tpu_torch.solver.api import (  # noqa: E402
+    IterativeLinearQuadraticRegulator,
+)
+from drake_ddp_tpu_torch.solver.batched import solve_ilqr_batched  # noqa: E402
+from drake_ddp_tpu_torch.solver.ilqr import (  # noqa: E402
+    ILQRConfig,
+    ILQRProblem,
+    ILQRSolution,
+    solve_ilqr,
+)
+from drake_ddp_tpu_torch.solver.keypoints import (  # noqa: E402
+    DerivsInterpolation,
+)
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "resolve_device",
+    "DiscreteSystem",
+    "ILQRConfig",
+    "ILQRProblem",
+    "ILQRSolution",
+    "solve_ilqr",
+    "IterativeLinearQuadraticRegulator",
+    "DerivsInterpolation",
+    "MPCConfig",
+    "mpc_solve_batched",
+    "solve_ilqr_batched",
+]

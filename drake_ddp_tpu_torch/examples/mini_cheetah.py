@@ -1,18 +1,29 @@
-"""Mini Cheetah quadruped: the flagship batched MPC task.
+"""Mini Cheetah quadruped: contact-implicit gait generation + MPC.
 
-Port of the task definition in ``drake_ddp_tpu/examples/mini_cheetah.py``:
-floating-base quadruped (n = 37: quaternion base 7 q + 12 joints, 18 v;
-m = 12), T = 0.2 s at dt = 4e-3 (N = 50), standing pose + feed-forward
-standing torques as the initial guess, a target moving at target_vel,
-compliant ground (modulus 5e6, mu 0.6/0.5) as an analytic halfspace.
-The single-solve ``run`` loop and its viewer are not ported yet; the
-batched MPC entry point is :func:`drake_ddp_tpu_torch.mpc.driver.
-mpc_solve_batched`.
+Port of ``drake_ddp_tpu/examples/mini_cheetah.py``: floating-base
+quadruped (n = 37: quaternion base 7 q + 12 joints, 18 v; m = 12),
+T = 0.2 s at dt = 4e-3 (N = 50), standing pose + feed-forward standing
+torques as the initial guess, a target moving at target_vel, compliant
+ground (modulus 5e6, mu 0.6/0.5) as an analytic halfspace, beta = 0.5,
+delta = 1e-2, receding-horizon resolves every replan_steps = 4 steps.
+
+:func:`run` is the single-trajectory entry point: one solve and
+``num_resolves`` warm-started resolves through
+:class:`~drake_ddp_tpu_torch.solver.api.IterativeLinearQuadraticRegulator`
+(megaroll rollouts and cold-Newton megajac derivatives on the card).
+The batched MPC entry point is :func:`drake_ddp_tpu_torch.mpc.driver.
+mpc_solve_batched`.  Derivative interpolation: setInterval;
+adaptiveJerk and iterativeError come with a later slice of the port and
+raise.
+
+    python -m drake_ddp_tpu_torch.examples.mini_cheetah     # on the card
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Optional
 
 import numpy as np
 
@@ -28,6 +39,8 @@ from drake_ddp_tpu_torch.io.urdf import add_urdf
 from drake_ddp_tpu_torch.models import mini_cheetah as mini_cheetah_robot
 from drake_ddp_tpu_torch.multibody.model import ModelBuilder
 from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
+from drake_ddp_tpu_torch.solver.api import IterativeLinearQuadraticRegulator
+from drake_ddp_tpu_torch.solver.keypoints import DerivsInterpolation
 
 # Standing configuration and feed-forward torques.
 Q0 = np.asarray(
@@ -51,10 +64,12 @@ class Config:
     dt: float = 4e-3
     target_vel: float = 1.0
     # MPC
+    num_resolves: int = 1
     replan_steps: int = 4
     # solver
     beta: float = 0.5
     delta: float = 1e-2
+    gamma: float = 0.0
     # contact
     mu_static: float = 0.6
     mu_dynamic: float = 0.5
@@ -67,6 +82,11 @@ class Config:
     # narrow force smoothing: wider widths let hovering feet pick up
     # phantom forces that pump energy into the gait rollout
     smooth_width: float = 1e-3
+    # derivative interpolation
+    use_derivative_interpolation: bool = False
+    keypoint_method: str = "adaptiveJerk"
+    minN: int = 2
+    verbose: bool = True
 
 
 def build_system(cfg: Config = Config(), device="cuda"):
@@ -112,3 +132,79 @@ def initial_and_target(cfg: Config = Config()):
     x_nom[4] += cfg.target_vel * cfg.T   # base x position
     x_nom[22] += cfg.target_vel          # base x velocity
     return x0, x_nom
+
+
+def build_solver(cfg: Config = Config(), device="cuda",
+                 deriv_kernel: Optional[str] = None, timer=None):
+    """The single-trajectory solver on ``device``, set up for the first
+    solve: (ilqr, x0, x_nom).  ``deriv_kernel`` and ``timer`` as in
+    :class:`~drake_ddp_tpu_torch.solver.api.
+    IterativeLinearQuadraticRegulator`."""
+    system, _ = build_system(cfg, device=device)
+    num_steps = int(cfg.T / cfg.dt)
+    interp: Optional[DerivsInterpolation] = None
+    if cfg.use_derivative_interpolation:
+        interp = DerivsInterpolation(cfg.keypoint_method, cfg.minN)
+    ilqr = IterativeLinearQuadraticRegulator(
+        system, num_steps, beta=cfg.beta, delta=cfg.delta, gamma=cfg.gamma,
+        derivs_keypoint_method=interp, verbose=cfg.verbose,
+        raise_on_divergence=False, device=device, deriv_kernel=deriv_kernel,
+        timer=timer,
+    )
+    Q, R, Qf = costs(cfg)
+    x0, x_nom = initial_and_target(cfg)
+    ilqr.SetTargetState(x_nom)
+    ilqr.SetRunningCost(cfg.dt * Q, cfg.dt * R)
+    ilqr.SetTerminalCost(Qf)
+    ilqr.SetInitialState(x0)
+    ilqr.SetInitialGuess(np.repeat(U_STAND[None].T, num_steps - 1, axis=1))
+    return ilqr, x0, x_nom
+
+
+def run(cfg: Config = Config(), device="cuda",
+        deriv_kernel: Optional[str] = None, timer=None, on_solve=None):
+    """Initial solve + ``num_resolves`` MPC resolves; returns the
+    stitched state history (37, N + replan_steps * num_resolves), the
+    last control tape, the wall seconds and the last cost.
+
+    ``on_solve``: optional callable that gets each solve's
+    :class:`~drake_ddp_tpu_torch.solver.ilqr.ILQRSolution` (numpy)."""
+    ilqr, x0, x_nom = build_solver(cfg, device, deriv_kernel, timer)
+    num_steps = int(cfg.T / cfg.dt)
+    rs = cfg.replan_steps
+    total_steps = num_steps + rs * cfg.num_resolves
+    states = np.zeros((37, total_steps))
+
+    def solve():
+        out = ilqr.Solve()
+        if on_solve is not None:
+            on_solve(ilqr._solution)
+        return out
+
+    st = time.time()
+    x, u, _, cost = solve()
+    states[:, 0:num_steps] = x
+
+    for i in range(cfg.num_resolves):
+        if cfg.verbose:
+            print(f"\nRunning resolve {i + 1}/{cfg.num_resolves}\n")
+        # warm start: shift the tape, repeat the last input
+        u_guess = np.block([
+            u[:, rs:], np.repeat(u[:, -1:], rs, axis=1)
+        ])
+        # open-loop handoff + moving target
+        x_nom[4] += cfg.target_vel * cfg.dt * rs
+        ilqr.SetInitialState(x[:, rs])
+        ilqr.SetInitialGuess(u_guess)
+        ilqr.SetTargetState(x_nom)
+        x, u, _, cost = solve()
+        start = (i + 1) * rs
+        states[:, start:start + num_steps] = x
+
+    solve_time = time.time() - st
+    print(f"Solved in {solve_time} seconds using iLQR")
+    return states, u, solve_time, cost
+
+
+if __name__ == "__main__":
+    run()

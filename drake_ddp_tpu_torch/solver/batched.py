@@ -8,15 +8,20 @@ scenario batch as an explicit leading axis B.
   whole-horizon kernel (``rollout_kernel="fused"``, :mod:`ops.megaroll`)
   or one step kernel launch per horizon step (``"megastep"``,
   :mod:`ops.megastep`).  On CPU tensors both run their plain versions.
-- Derivatives come from the structured-IFT step Jacobian, through the
-  keypoint schedule of :mod:`solver.keypoints`: the megajac CUDA kernels
-  (``deriv_kernel="megajac"``, :mod:`ops.megajac`) or the plain PyTorch
-  lane Jacobian (``"lane"``, :mod:`multibody.lanejac`), root-seeded when
-  the system has a root-seeded Jacobian, else cold-Newton.
+  ``"plain"`` loops the system's own lane step: the route of a system
+  without kernel data, such as an analytic one.
+- Derivatives come from the step's lane Jacobian, through the keypoint
+  schedule of :mod:`solver.keypoints`: the megajac CUDA kernels
+  (``deriv_kernel="megajac"``, :mod:`ops.megajac`) or the system's own
+  lane Jacobian (``"lane"``; for a multibody system the plain PyTorch
+  structured IFT of :mod:`multibody.lanejac`), root-seeded or
+  cold-Newton as ``root_seed`` says.
 - Both loops keep what ``jax.vmap`` makes of a batched ``while_loop``:
   iterate while ANY lane is active, freeze the carry of inactive lanes.
   Each round costs one host synchronisation to read that flag;
-  :func:`any_lane` counts them.
+  :func:`any_lane` counts them.  A single scenario (B = 1) also reads
+  whether its round is a regularization retry, and skips the derivative
+  call then, as the per-scenario JAX solve's ``lax.cond`` does.
 
 Kernel choice is an explicit setting: there is no fallback between
 kernels.
@@ -45,7 +50,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
 )
 from drake_ddp_tpu_torch.utils.timing import phase
 
-ROLLOUT_KERNELS = ("fused", "megastep")
+ROLLOUT_KERNELS = ("fused", "megastep", "plain")
 DERIV_KERNELS = ("megajac", "lane")
 
 
@@ -170,22 +175,27 @@ def _rollout_for(system: DiscreteSystem, rollout_kernel: str):
         return megaroll_for_system(system)
     if rollout_kernel == "megastep":
         return partial(rollout_plain, megastep_for_system(system))
+    if rollout_kernel == "plain":
+        return partial(rollout_plain, system.lane_step_fn)
     raise ValueError(f"rollout_kernel must be one of {ROLLOUT_KERNELS}, "
                      f"got {rollout_kernel!r}")
 
 
-def _jac_for(system: DiscreteSystem, deriv_kernel: str):
+def _jac_for(system: DiscreteSystem, deriv_kernel: str, root_seed=None):
     """The lane Jacobian for an explicit kernel choice, and whether it is
-    root-seeded.  Root-seeded when the system has a root-seeded Jacobian:
-    the trajectory handed to the derivative phase is the accepted
-    rollout, whose x_{t+1} is the converged contact root, so the
-    Jacobian's own Newton can be skipped.  Else cold-Newton."""
+    root-seeded.  Root-seeded: the trajectory handed to the derivative
+    phase is the accepted rollout, whose x_{t+1} is the converged contact
+    root, so the Jacobian's own Newton can be skipped.  Cold-Newton: the
+    Jacobian runs the step's own Newton first.  ``root_seed`` None takes
+    the root-seeded Jacobian when the system has one."""
     if deriv_kernel not in DERIV_KERNELS:
         raise ValueError(f"deriv_kernel must be one of {DERIV_KERNELS}, "
                          f"got {deriv_kernel!r}")
-    root = system.lane_jac_root_fn is not None
-    if not root and system.lane_jac_fn is None:
-        raise ValueError("system provides no lane Jacobian")
+    has_root = system.lane_jac_root_fn is not None
+    root = has_root if root_seed is None else bool(root_seed)
+    if (root and not has_root) or (not root and system.lane_jac_fn is None):
+        kind = "root-seeded" if root else "cold-Newton"
+        raise ValueError(f"system provides no lane Jacobian ({kind})")
     if deriv_kernel == "megajac":
         return megajac_for_system(system, root_seed=root), root
     return (system.lane_jac_root_fn if root else system.lane_jac_fn), root
@@ -197,22 +207,26 @@ def solve_ilqr_batched(
     prob: ILQRProblem,
     rollout_kernel: str = "fused",
     deriv_kernel: str = "megajac",
+    root_seed=None,
     timer=None,
 ) -> ILQRSolution:
     """Batched iLQR: every ``prob`` leaf carries a leading batch axis B;
     the returned ILQRSolution leaves do too.
 
     ``rollout_kernel``: 'fused' (one megaroll launch per linesearch
-    chunk) or 'megastep' (one megastep launch per horizon step).
+    chunk), 'megastep' (one megastep launch per horizon step) or 'plain'
+    (the system's lane step, one Python step per horizon step).
     ``deriv_kernel``: 'megajac' (the CUDA Jacobian kernels, one launch
-    per derivative call) or 'lane' (the plain PyTorch lane Jacobian);
-    root-seeded when the system has ``lane_jac_root_fn``, else
-    cold-Newton through ``lane_jac_fn``.
+    per derivative call) or 'lane' (the system's lane Jacobian).
+    ``root_seed``: True for the root-seeded Jacobian
+    (``lane_jac_root_fn``), False for the cold-Newton one
+    (``lane_jac_fn``), None for the root-seeded one when the system has
+    it, else the cold one.
     ``timer``: optional :class:`~drake_ddp_tpu_torch.utils.timing.
     PhaseTimer` that gets the rollout, jac, derivs and riccati phases."""
     cfg.derivs.validate()
     rollout = _rollout_for(system, rollout_kernel)
-    jac, root = _jac_for(system, deriv_kernel)
+    jac, root = _jac_for(system, deriv_kernel, root_seed)
     N = cfg.num_steps
     B, n = prob.x0.shape
     m = prob.u_init.shape[-1]
@@ -258,11 +272,15 @@ def solve_ilqr_batched(
         # init, and a first-iteration failure must linearize the kept
         # trajectory, e.g. the policy warm start)
         cache_ok = failed & (state.iteration > 0)
-        with phase(timer, "derivs"):
-            fx_new, fu_new, pct = derivs_fn(x_use, u_use)
-        fx = selb(cache_ok, state.fx, fx_new)
-        fu = selb(cache_ok, state.fu, fu_new)
-        percent = torch.where(failed, torch.zeros_like(pct), pct)
+        if B == 1 and not any_lane(~cache_ok):
+            fx, fu = state.fx, state.fu
+            percent = torch.zeros_like(state.L)
+        else:
+            with phase(timer, "derivs"):
+                fx_new, fu_new, pct = derivs_fn(x_use, u_use)
+            fx = selb(cache_ok, state.fx, fx_new)
+            fu = selb(cache_ok, state.fu, fu_new)
+            percent = torch.where(failed, torch.zeros_like(pct), pct)
         with phase(timer, "riccati"):
             kappa, K, dV = _backward_pass(cfg, prob, x_use, u_use, fx, fu,
                                           reg_new)

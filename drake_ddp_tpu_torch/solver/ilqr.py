@@ -1,11 +1,13 @@
-"""iLQR records, per-step costs and the batched Riccati sweep.
+"""iLQR records, per-step costs, the batched Riccati sweep and the
+per-scenario solve.
 
-Port of the parts of ``drake_ddp_tpu/solver/ilqr.py`` that the batched
-solver (:mod:`drake_ddp_tpu_torch.solver.batched`) runs: the
-configuration and problem records, the per-step cost and the Riccati
-backward pass, written with an explicit leading batch axis B where the
-JAX package vmaps its per-scenario functions.  The per-scenario
-``solve_ilqr`` comes with the per-scenario slice (ROADMAP Queue 1).
+Port of ``drake_ddp_tpu/solver/ilqr.py``: the configuration and problem
+records, the per-step cost and the Riccati backward pass, written with an
+explicit leading batch axis B where the JAX package vmaps its
+per-scenario functions, and :func:`solve_ilqr`, the per-scenario solve,
+which runs the batched loop of :mod:`drake_ddp_tpu_torch.solver.batched`
+on a batch of one (the JAX package pins its batched solver to
+``jax.vmap(solve_ilqr)``, so one loop serves both).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from drake_ddp_tpu_torch.multibody.plant import is_multibody
 from drake_ddp_tpu_torch.solver import keypoints as kp
 from drake_ddp_tpu_torch.utils.linalg import solve_spd
 
@@ -61,7 +64,8 @@ class ILQRConfig(NamedTuple):
 
 
 class ILQRProblem(NamedTuple):
-    """Problem data, every field with a leading batch axis B:
+    """Problem data, every field with a leading batch axis B for the
+    batched solver (none for :func:`solve_ilqr`):
         x0 (B, n), x_nom (B, n), Q (B, n, n), R (B, m, m), Qf (B, n, n),
         u_init (B, N-1, m) time-major control tapes.
 
@@ -84,7 +88,8 @@ class ILQRProblem(NamedTuple):
 
 
 class ILQRStats(NamedTuple):
-    """Per-iteration diagnostics (B, max_iters), masked by iterations."""
+    """Per-iteration diagnostics (B, max_iters), masked by iterations
+    ((max_iters,) from :func:`solve_ilqr`)."""
 
     cost: torch.Tensor
     eps: torch.Tensor
@@ -177,3 +182,33 @@ def _backward_pass(cfg: ILQRConfig, prob: ILQRProblem, x_bar, u_bar, fx, fu,
         kappas[t], Ks[t] = kappa_t, K_t
     return (torch.stack(kappas, dim=1), torch.stack(Ks, dim=1),
             torch.stack(dVs, dim=1))
+
+
+def solve_ilqr(system, cfg: ILQRConfig, prob: ILQRProblem,
+               deriv_kernel: Optional[str] = None,
+               timer=None) -> ILQRSolution:
+    """The iLQR solve of one scenario: ``prob`` without a batch axis
+    (x0 (n,), Q (n, n), u_init (N-1, m), ...); the solution likewise.
+
+    The batched loop at B = 1.  The kernels follow the system: a
+    multibody system rolls out on megaroll (``rollout_kernel="fused"``)
+    and differentiates with the cold-Newton megajac (``"megajac"``, the
+    IFT at the step's own Newton root, as ``jax.jacfwd`` of the JAX
+    per-scenario step gives); a system without kernel data, such as an
+    analytic one, runs its own lane step and lane Jacobian (``"plain"``,
+    ``"lane"``).  ``deriv_kernel`` names the Jacobian route instead.  On
+    CPU tensors the kernel wrappers run their plain versions.  ``timer``
+    as in :func:`~drake_ddp_tpu_torch.solver.batched.
+    solve_ilqr_batched`."""
+    from drake_ddp_tpu_torch.solver.batched import solve_ilqr_batched
+
+    multibody = is_multibody(system)
+    sol = solve_ilqr_batched(
+        system, cfg,
+        ILQRProblem(*(None if a is None else a[None] for a in prob)),
+        rollout_kernel="fused" if multibody else "plain",
+        deriv_kernel=deriv_kernel or ("megajac" if multibody else "lane"),
+        root_seed=False, timer=timer)
+    return ILQRSolution(*(
+        ILQRStats(*(a[0] for a in f)) if isinstance(f, ILQRStats) else f[0]
+        for f in sol))

@@ -240,3 +240,42 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
         megastep(kd, x[:36].float(), u.float())
     with pytest.raises(ValueError, match="contiguous"):
         megastep(kd, x.float().T.contiguous().T, u.float())
+
+
+@pytest.mark.cuda
+def test_scenario_cheetah_solve_runs_on_the_kernels(card):
+    """The per-scenario cheetah solve on the card (N 10, contact_iters 2):
+    one megaroll launch per linesearch chunk and one megajac launch per
+    fresh-derivative round, so neither plain route runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from drake_ddp_tpu_torch.examples import mini_cheetah as mc
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+
+    cfg = dataclasses.replace(mc.Config(), T=10 * 4e-3, contact_iters=2,
+                              num_resolves=0, verbose=False)
+    timer = PhaseTimer()
+    roll0, jac0 = megaroll.launches, megajac.launches
+    states, _, _, cost = mc.run(cfg, device=card, timer=timer)
+    assert megaroll.launches - roll0 == timer.counts["rollout"] > 0
+    assert megajac.launches - jac0 == timer.counts["jac"] > 0
+    assert np.isfinite(states).all() and np.isfinite(cost)
+
+
+@pytest.mark.cuda
+def test_pendulum_on_the_card_takes_the_cpu_iterations(card):
+    from drake_ddp_tpu_torch.examples import pendulum
+
+    sols = {}
+    for dev in ("cpu", card):
+        ilqr = pendulum.build_solver(pendulum.Config(verbose=False),
+                                     device=dev)
+        _, _, _, cost = ilqr.Solve()
+        sols[str(dev)] = (int(ilqr._solution.iterations), cost)
+    (it_cpu, c_cpu), (it_card, c_card) = sols.values()
+    assert it_card == it_cpu
+    assert abs(c_card - c_cpu) <= 1e-3 * abs(c_cpu)

@@ -210,10 +210,22 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", ["package", "chip_smoke"])
+# the per-scenario surface, each named so that a move or rename shows
+PER_SCENARIO = ("__init__.py", "dynamics/__init__.py", "dynamics/base.py",
+                "dynamics/analytic.py", "multibody/plant.py",
+                "solver/ilqr.py", "solver/api.py", "examples/pendulum.py",
+                "examples/cart_pole.py", "examples/mini_cheetah.py")
+
+
+@pytest.mark.parametrize("where", ["package", "chip_smoke", "per_scenario"])
 def test_port_imports_no_jax(where):
-    files = (sorted((REPO / "drake_ddp_tpu_torch").rglob("*.py"))
-             if where == "package" else [REPO / "chip_smoke.py"])
+    if where == "package":
+        files = sorted((REPO / "drake_ddp_tpu_torch").rglob("*.py"))
+    elif where == "per_scenario":
+        files = [REPO / "drake_ddp_tpu_torch" / f for f in PER_SCENARIO]
+        assert all(f.is_file() for f in files)
+    else:
+        files = [REPO / "chip_smoke.py"]
     assert files
     for path in files:
         for mod in _imports(path):
