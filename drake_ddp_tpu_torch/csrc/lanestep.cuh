@@ -6,7 +6,9 @@
 // PyTorch step drake_ddp_tpu_torch/multibody/lanestep.py, which it
 // follows operation for operation: forward kinematics, world inertias
 // and mass matrix, velocity-product bias forces, narrowphase (sphere-
-// halfspace, sphere-box, box-face-halfspace), contact Jacobians, the
+// halfspace, sphere-box, sphere-sphere, sphere-world-sphere, and the
+// box-face corner quadrature against a halfspace or a body sphere),
+// contact Jacobians, the
 // stiction-continuation damped Newton solve of the implicit contact
 // velocity with its unpivoted Cholesky predictor and unpivoted
 // Gauss-Jordan steps, and the position integration with quaternion
@@ -51,22 +53,24 @@
 #define DDP_MAX_Q 40
 #define DDP_MAX_V 32
 #define DDP_MAX_U 32
-#define DDP_MAX_CONTACTS 64
-#define DDP_MAX_SPHERES 32
+#define DDP_MAX_CONTACTS 160
+#define DDP_MAX_SPHERES 64
 #define DDP_MAX_BOXES 8
 #define DDP_MAX_HALFSPACES 4
+#define DDP_MAX_WORLD_SPHERES 8
 #define DDP_MAX_ITERS 16
 
 enum { J_FREE = 0, J_REVOLUTE = 1, J_PRISMATIC = 2, J_FIXED = 3 };
 // contact row kinds: sphere-halfspace, sphere-box, box face corner vs
-// halfspace
-enum { C_SH = 0, C_SB = 1, C_BH = 2 };
+// halfspace, sphere-sphere (both on bodies), body sphere vs world
+// sphere, box face corner vs body sphere
+enum { C_SH = 0, C_SB = 1, C_BH = 2, C_SS = 3, C_SW = 4, C_BS = 5 };
 
 // The packed model + contact + solver table.  Only 4-byte fields, ints
 // first, so the layout has no padding; ops/_table.py mirrors it with a
 // ctypes.Structure and checks sizeof against ddp_table_bytes().
 struct StepTable {
-  int32_t nb, nq, nv, nu, nc, ns, nbox, nh, contact_iters, has_contact;
+  int32_t nb, nq, nv, nu, nc, ns, nbox, nh, nws, contact_iters, has_contact;
   int32_t nlevels;                   // depths of the kinematic tree
   int32_t parent[DDP_MAX_BODIES];
   int32_t jtype[DDP_MAX_BODIES];
@@ -81,8 +85,10 @@ struct StepTable {
   int32_t sph_body[DDP_MAX_SPHERES];
   int32_t box_body[DDP_MAX_BOXES];
   int32_t c_kind[DDP_MAX_CONTACTS];
-  int32_t c_i0[DDP_MAX_CONTACTS];    // sphere (SH, SB) or box (BH)
-  int32_t c_i1[DDP_MAX_CONTACTS];    // halfspace (SH, BH) or box (SB)
+  // c_i0: sphere (SH, SB, SS, SW) or box (BH, BS); c_i1: halfspace (SH,
+  // BH), box (SB), sphere (SS, BS) or world sphere (SW)
+  int32_t c_i0[DDP_MAX_CONTACTS];
+  int32_t c_i1[DDP_MAX_CONTACTS];
   int32_t c_corner[DDP_MAX_CONTACTS];
   int32_t c_body_a[DDP_MAX_CONTACTS];
   int32_t c_body_b[DDP_MAX_CONTACTS];
@@ -109,10 +115,12 @@ struct StepTable {
   float box_rot[DDP_MAX_BOXES][9];
   float box_pos[DDP_MAX_BOXES][3];
   float box_half[DDP_MAX_BOXES][3];
+  float ws_pos[DDP_MAX_WORLD_SPHERES][3];
+  float ws_r[DDP_MAX_WORLD_SPHERES];
   float c_K[DDP_MAX_CONTACTS];
   float c_d[DDP_MAX_CONTACTS];
   float c_mu[DDP_MAX_CONTACTS];
-  float c_g[DDP_MAX_CONTACTS];       // box-face pressure gradient (BH)
+  float c_g[DDP_MAX_CONTACTS];       // box-face pressure gradient (BH, BS)
 };
 
 // Offsets of the per-lane working-set fields, in scalars.
@@ -750,7 +758,34 @@ __device__ void box_pose(const Layout& Y, const W& s, int i,
   for (int a = 0; a < 3; ++a) pw[a] = s[Y.BP + 3 * i + a];
 }
 
-// Narrowphase of contact row c: PHI, NRM, PNT and K1.
+// Corner `corner` of box bi at the pose (Rw, pw) into pt, and the box's
+// silhouette area projected along nvec: the corner quadrature of the
+// box-face law, whose linear stiffness is K1 = g A_proj / 4 per corner
+// (BH against a halfspace, BS against a body sphere).
+template <typename S, typename N>
+__device__ inline S box_corner(const StepTable& T, int bi, int corner,
+                               const S Rw[9], const S pw[3], const N nvec[3],
+                               S pt[3]) {
+  const float* half = T.box_half[bi];
+  S nb_ax[3];
+  for (int j = 0; j < 3; ++j)
+    nb_ax[j] =
+        s_abs(nvec[0] * Rw[j] + nvec[1] * Rw[3 + j] + nvec[2] * Rw[6 + j]);
+  const S a_proj = 4.f * (half[1] * half[2] * nb_ax[0] +
+                          half[0] * half[2] * nb_ax[1] +
+                          half[0] * half[1] * nb_ax[2]);
+  // corner signs in (x, y, z) binary order, x slowest: (-,-,-), (-,-,+)...
+  const float sg[3] = {(corner & 4) ? 1.f : -1.f, (corner & 2) ? 1.f : -1.f,
+                       (corner & 1) ? 1.f : -1.f};
+  const float loc[3] = {sg[0] * half[0], sg[1] * half[1], sg[2] * half[2]};
+  for (int a = 0; a < 3; ++a)
+    pt[a] = pw[a] + (Rw[3 * a] * loc[0] + Rw[3 * a + 1] * loc[1] +
+                     Rw[3 * a + 2] * loc[2]);
+  return a_proj;
+}
+
+// Narrowphase of contact row c: PHI, NRM, PNT and K1.  Every kind reads
+// only the sphere centres and box poses, so the row depends on q alone.
 template <class W>
 __device__ void contact_row(const StepTable& T, const Layout& Y, const W& s,
                             int c) {
@@ -809,28 +844,54 @@ __device__ void contact_row(const StepTable& T, const Layout& Y, const W& s,
       n[a] = Rw[3 * a] * nl[0] + Rw[3 * a + 1] * nl[1] + Rw[3 * a + 2] * nl[2];
       pt[a] = cen[a] - (sd - 0.5f * phi) * n[a];
     }
-  } else {  // C_BH: box face corner vs halfspace, linear law K1
-    const int bi = T.c_i0[c], hi = T.c_i1[c], corner = T.c_corner[c];
+  } else if (kind == C_SS || kind == C_SW) {
+    // sphere vs sphere (SS: both on bodies; SW: the second a fixed world
+    // sphere): the normal from the second centre to the first, the point
+    // halfway through the overlap
+    const int si = T.c_i0[c], sj = T.c_i1[c];
+    S ca[3], cb[3];
+    load3(s, Y.CEN + 3 * si, ca);
+    float rb;
+    if (kind == C_SS) {
+      load3(s, Y.CEN + 3 * sj, cb);
+      rb = T.sph_r[sj];
+    } else {
+      for (int a = 0; a < 3; ++a) cb[a] = S(T.ws_pos[sj][a]);
+      rb = T.ws_r[sj];
+    }
+    S d[3];
+    for (int a = 0; a < 3; ++a) d[a] = ca[a] - cb[a];
+    const S dist = s_sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+    const S dmax = val(dist) > 1e-9f ? dist : S(1e-9f);
+    phi = (S(T.sph_r[si]) + rb) - dist;
+    for (int a = 0; a < 3; ++a) {
+      n[a] = d[a] / dmax;
+      pt[a] = cb[a] + (rb - 0.5f * phi) * n[a];
+    }
+  } else if (kind == C_BH) {  // box face corner vs halfspace
+    const int bi = T.c_i0[c], hi = T.c_i1[c];
     S Rw[9], pw[3];
     box_pose(Y, s, bi, Rw, pw);
     const float* nh = T.hs_n[hi];
-    const float* half = T.box_half[bi];
-    S nb_ax[3];
-    for (int j = 0; j < 3; ++j)
-      nb_ax[j] = s_abs(nh[0] * Rw[j] + nh[1] * Rw[3 + j] + nh[2] * Rw[6 + j]);
-    const S a_proj = 4.f * (half[1] * half[2] * nb_ax[0] +
-                            half[0] * half[2] * nb_ax[1] +
-                            half[0] * half[1] * nb_ax[2]);
-    k1 = T.c_g[c] * a_proj / 4.f;
-    // corner signs in (x, y, z) binary order, x slowest: (-,-,-), (-,-,+)...
-    const float sg[3] = {(corner & 4) ? 1.f : -1.f, (corner & 2) ? 1.f : -1.f,
-                         (corner & 1) ? 1.f : -1.f};
-    const float loc[3] = {sg[0] * half[0], sg[1] * half[1], sg[2] * half[2]};
-    for (int a = 0; a < 3; ++a)
-      pt[a] = pw[a] + (Rw[3 * a] * loc[0] + Rw[3 * a + 1] * loc[1] +
-                       Rw[3 * a + 2] * loc[2]);
+    k1 = T.c_g[c] * box_corner(T, bi, T.c_corner[c], Rw, pw, nh, pt) / 4.f;
     phi = T.hs_off[hi] - (nh[0] * pt[0] + nh[1] * pt[1] + nh[2] * pt[2]);
     for (int a = 0; a < 3; ++a) n[a] = S(nh[a]);
+  } else {  // C_BS: box face corner vs body sphere, the area along the
+            // direction from the box centre to the sphere's
+    const int bi = T.c_i0[c], si = T.c_i1[c];
+    S Rw[9], pw[3], cen[3], dir[3], nbar[3], delta[3];
+    box_pose(Y, s, bi, Rw, pw);
+    load3(s, Y.CEN + 3 * si, cen);
+    for (int a = 0; a < 3; ++a) dir[a] = cen[a] - pw[a];
+    const S dn =
+        s_sqrt(dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2] + 1e-18f);
+    for (int a = 0; a < 3; ++a) nbar[a] = dir[a] / dn;
+    k1 = T.c_g[c] * box_corner(T, bi, T.c_corner[c], Rw, pw, nbar, pt) / 4.f;
+    for (int a = 0; a < 3; ++a) delta[a] = pt[a] - cen[a];
+    const S dist = s_sqrt(delta[0] * delta[0] + delta[1] * delta[1] +
+                          delta[2] * delta[2] + 1e-18f);
+    phi = T.sph_r[si] - dist;
+    for (int a = 0; a < 3; ++a) n[a] = delta[a] / dist;
   }
   s[Y.PHI + c] = phi;
   s[Y.K1 + c] = k1;

@@ -4,9 +4,11 @@ Port of the part of ``drake_ddp_tpu/io/urdf.py`` this slice uses: the
 ``Urdf*`` host records and :func:`add_urdf`, which feeds a
 :class:`~drake_ddp_tpu_torch.multibody.model.ModelBuilder` and a
 :class:`~drake_ddp_tpu_torch.contact.geometry.GeometrySet`.  Sphere,
-box, cylinder and capsule collisions are supported; mesh collisions
-(bounding-sphere covers) and the XML parser come with the manipulation
-slice (ROADMAP Queue 1, item 10).
+box, cylinder and capsule collisions are supported; the robots of
+:mod:`drake_ddp_tpu_torch.models` carry their mesh collisions already
+approximated by spheres.  Bounding-sphere covers of mesh files and the
+XML parser come with the rest of the manipulation slice (ROADMAP Queue
+1, item 11).
 """
 
 from __future__ import annotations
@@ -92,18 +94,28 @@ def add_urdf(
     base_rot: Optional[np.ndarray] = None,
     floating: bool = True,
     prefix: str = "",
+    mesh_max_spheres: int = 4,
+    mesh_refine: float = 1.0,
 ) -> Dict[str, int]:
     """Add a robot record to a ModelBuilder (+ GeometrySet).
 
     ``base_parent`` / ``base_pos`` / ``base_rot`` place the root link
     relative to an existing body (-1 = world); ``floating=True`` gives
     the root a free (quaternion) joint, ``False`` welds it.  Joints are
-    added in document order (Drake's q/v slot order).  Returns
-    {link_name: body_index}."""
+    added in document order (Drake's q/v slot order).  ``mesh_max_spheres``
+    and ``mesh_refine`` size the sphere cover of a mesh collision, as in
+    the JAX package; until covers are ported a mesh collision raises, and
+    so does a value of either other than its default.
+    Returns {link_name: body_index}."""
+    if (mesh_max_spheres, mesh_refine) != (4, 1.0):
+        raise NotImplementedError(
+            "mesh_max_spheres and mesh_refine size bounding-sphere covers of "
+            "mesh files, which are not ported yet (ROADMAP Queue 1, item "
+            "11); the embedded models' meshes are already spheres")
     if not isinstance(robot, UrdfRobot):
         raise NotImplementedError(
             "URDF text parsing is not ported yet (ROADMAP Queue 1, item "
-            "10); pass a UrdfRobot record, e.g. models.mini_cheetah()")
+            "11); pass a UrdfRobot record, e.g. models.mini_cheetah()")
     base_rot = np.eye(3) if base_rot is None else np.asarray(base_rot)
     base_pos = np.asarray(base_pos, np.float64)
     body_index: Dict[str, int] = {}
@@ -166,6 +178,7 @@ def add_urdf(
 def _add_collision(gs: GeometrySet, body: int, c: UrdfCollision):
     if c.kind == "mesh":
         raise NotImplementedError(
-            f"mesh collision {c.mesh_file!r}: bounding-sphere mesh covers "
-            "come with the manipulation slice (ROADMAP Queue 1, item 10)")
+            f"mesh collision {c.mesh_file!r}: bounding-sphere covers of mesh "
+            "files come with the rest of the manipulation slice (ROADMAP "
+            "Queue 1, item 11)")
     gs.add(CollisionGeometry(body, c.kind, c.pos, c.rot, c.size, c.props))

@@ -1,7 +1,9 @@
 """Reconstruct host-side robot records from embedded data modules.
 
-Port of ``drake_ddp_tpu/models/registry.py`` for the robots this slice
-runs (the mini cheetah); the manipulation robots come with their slice.
+Port of ``drake_ddp_tpu/models/registry.py``: the mini cheetah, the
+Kinova Gen3 and Franka FR3 arms and the Robotiq 2F-85 gripper, each from
+the port's own copy of its generated data module (mesh collisions
+already approximated by spheres there).
 """
 
 from __future__ import annotations
@@ -56,4 +58,30 @@ def mini_cheetah() -> UrdfRobot:
     """MIT Mini Cheetah: floating base + 12 actuated leg joints, body box
     + 4 foot spheres."""
     from drake_ddp_tpu_torch.models._data_mini_cheetah import MODEL
+    return robot_from_data(MODEL)
+
+
+def kinova_gen3() -> UrdfRobot:
+    """Kinova Gen3 7-dof arm, mesh collisions approximated by spheres."""
+    from drake_ddp_tpu_torch.models._data_kinova_gen3 import MODEL
+    return robot_from_data(MODEL)
+
+
+def panda_fr3() -> UrdfRobot:
+    """Franka FR3 7-dof arm with its fixed hand, including reflected rotor
+    inertias."""
+    from drake_ddp_tpu_torch.models._data_panda_fr3 import MODEL
+    return robot_from_data(MODEL)
+
+
+def gripper_static() -> UrdfRobot:
+    """Robotiq 2F-85 with welded fingers (the variant the Kinova task
+    welds to the arm)."""
+    from drake_ddp_tpu_torch.models._data_gripper_static import MODEL
+    return robot_from_data(MODEL)
+
+
+def gripper_articulated() -> UrdfRobot:
+    """Robotiq 2F-85 with articulated fingers."""
+    from drake_ddp_tpu_torch.models._data_gripper_articulated import MODEL
     return robot_from_data(MODEL)

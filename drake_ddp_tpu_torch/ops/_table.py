@@ -27,16 +27,16 @@ from drake_ddp_tpu_torch.multibody.lanestep import (LaneConsts,
 from drake_ddp_tpu_torch.multibody.model import MultibodyModel, vdof_body
 
 MAX_BODIES, MAX_Q, MAX_V, MAX_U = 32, 40, 32, 32
-MAX_CONTACTS, MAX_SPHERES, MAX_BOXES, MAX_HALFSPACES = 64, 32, 8, 4
-MAX_ITERS = 16
-C_SH, C_SB, C_BH = 0, 1, 2
+MAX_CONTACTS, MAX_SPHERES, MAX_BOXES, MAX_HALFSPACES = 160, 64, 8, 4
+MAX_WORLD_SPHERES, MAX_ITERS = 8, 16
+C_SH, C_SB, C_BH, C_SS, C_SW, C_BS = 0, 1, 2, 3, 4, 5
 
 _i32, _f32 = ctypes.c_int32, ctypes.c_float
 
 
 class StepTable(ctypes.Structure):
     _fields_ = [(k, _i32) for k in ("nb", "nq", "nv", "nu", "nc", "ns",
-                                    "nbox", "nh", "contact_iters",
+                                    "nbox", "nh", "nws", "contact_iters",
                                     "has_contact", "nlevels")] + [
         ("parent", _i32 * MAX_BODIES),
         ("jtype", _i32 * MAX_BODIES),
@@ -78,6 +78,8 @@ class StepTable(ctypes.Structure):
         ("box_rot", _f32 * 9 * MAX_BOXES),
         ("box_pos", _f32 * 3 * MAX_BOXES),
         ("box_half", _f32 * 3 * MAX_BOXES),
+        ("ws_pos", _f32 * 3 * MAX_WORLD_SPHERES),
+        ("ws_r", _f32 * MAX_WORLD_SPHERES),
         ("c_K", _f32 * MAX_CONTACTS),
         ("c_d", _f32 * MAX_CONTACTS),
         ("c_mu", _f32 * MAX_CONTACTS),
@@ -167,45 +169,51 @@ def pack_step_table(model: MultibodyModel, contact: Optional[ContactModel],
 
 
 def _pack_contact(T: StepTable, cm: ContactModel, C: LaneConsts, f):
-    if cm.pair_ss_a or cm.pair_sw_s or cm.pair_bs_b:
-        raise NotImplementedError(
-            "the CUDA step covers the sphere-halfspace, sphere-box and "
-            "box-face-halfspace families; sphere-sphere, world-sphere and "
-            "box-face-sphere pairs come with the manipulation slice")
     ns, nbox, nh = len(cm.sph_body), len(cm.box_body), len(cm.hs_offset)
+    nws = int(cm.ws_radius.shape[0])
     _check("spheres", ns, MAX_SPHERES)
     _check("boxes", nbox, MAX_BOXES)
     _check("halfspaces", nh, MAX_HALFSPACES)
+    _check("world spheres", nws, MAX_WORLD_SPHERES)
     _check("contacts", cm.num_contacts, MAX_CONTACTS)
-    T.nc, T.ns, T.nbox, T.nh = cm.num_contacts, ns, nbox, nh
+    T.nc, T.ns, T.nbox, T.nh, T.nws = cm.num_contacts, ns, nbox, nh, nws
     _fill(T.sph_body, np.asarray(cm.sph_body, np.int32))
     _fill(T.box_body, np.asarray(cm.box_body, np.int32))
     for name, val in (("sph_off", C.sph_offset), ("sph_r", C.sph_radius),
                       ("hs_n", C.hs_normal), ("hs_off", C.hs_offset),
                       ("box_rot", C.box_rot), ("box_pos", C.box_pos),
-                      ("box_half", C.box_half)):
+                      ("box_half", C.box_half), ("ws_pos", C.ws_pos),
+                      ("ws_r", C.ws_radius)):
         _fill(getattr(T, name), f(val))
-    # contact rows in the narrowphase's order: sh, sb, then 8 bh corners
-    kind, i0, i1, corner, g = [], [], [], [], []
-    for si, hi in zip(cm.pair_sh_s, cm.pair_sh_h):
-        kind.append(C_SH); i0.append(si); i1.append(hi)
-        corner.append(0); g.append(0.0)
-    for si, bi in zip(cm.pair_sb_s, cm.pair_sb_b):
-        kind.append(C_SB); i0.append(si); i1.append(bi)
-        corner.append(0); g.append(0.0)
-    bh_g = f(C.bh_g)
-    for pi, (bi, hi) in enumerate(zip(cm.pair_bh_b, cm.pair_bh_h)):
-        for k in range(8):
-            kind.append(C_BH); i0.append(bi); i1.append(hi)
-            corner.append(k); g.append(bh_g[pi])
+    rows = _contact_rows(cm)
+    g = np.zeros(len(rows), np.float32)
+    n_quad = cm.num_contacts - 8 * (len(cm.pair_bh_b) + len(cm.pair_bs_b))
+    box_g = [f(C.bh_g)] + ([f(C.bs_g)] if cm.pair_bs_b else [])
+    g[n_quad:] = np.repeat(np.concatenate(box_g), 8)
+    kind, i0, i1, corner = (np.asarray(col, np.int32) for col in zip(*rows))
     for name, vals in (("c_kind", kind), ("c_i0", i0), ("c_i1", i1),
-                       ("c_corner", corner), ("c_body_a", C.body_a),
-                       ("c_body_b", C.body_b)):
-        _fill(getattr(T, name), np.asarray(vals, np.int32))
+                       ("c_corner", corner),
+                       ("c_body_a", np.asarray(C.body_a, np.int32)),
+                       ("c_body_b", np.asarray(C.body_b, np.int32))):
+        _fill(getattr(T, name), vals)
     _fill(T.c_K, f(C.K))
     _fill(T.c_d, f(C.d))
     _fill(T.c_mu, f(C.mu))
-    _fill(T.c_g, np.asarray(g, np.float32))
+    _fill(T.c_g, g)
+
+
+def _contact_rows(cm: ContactModel):
+    """(kind, i0, i1, corner) of every contact row, in the narrowphase's
+    order (``multibody/lanestep.py`` ``_narrowphase_T``): sh, sb, ss, sw
+    pairs, then 8 corners of each bh and each bs pair."""
+    rows = ([(C_SH, s, h, 0) for s, h in zip(cm.pair_sh_s, cm.pair_sh_h)]
+            + [(C_SB, s, b, 0) for s, b in zip(cm.pair_sb_s, cm.pair_sb_b)]
+            + [(C_SS, a, b, 0) for a, b in zip(cm.pair_ss_a, cm.pair_ss_b)]
+            + [(C_SW, s, w, 0) for s, w in zip(cm.pair_sw_s, cm.pair_sw_w)])
+    for k, pairs in ((C_BH, zip(cm.pair_bh_b, cm.pair_bh_h)),
+                     (C_BS, zip(cm.pair_bs_b, cm.pair_bs_s))):
+        rows += [(k, b, o, corner) for b, o in pairs for corner in range(8)]
+    return rows
 
 
 class StepKernelData:

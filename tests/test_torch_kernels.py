@@ -121,6 +121,39 @@ def test_megastep_matches_plain_step_contact_families(card):
     assert e_kern <= 3.0 * e_plain + 1e-5, (e_kern, e_plain)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("families", [("ss",), ("ss", "sw"), ("ss", "bs")],
+                         ids=["ss", "sw", "bs"])
+def test_megastep_matches_plain_step_manipulation_families(card, families):
+    """Each contact family of the manipulation robots through the CUDA
+    step, on the small manipulation model: sphere-sphere (a free ball at
+    the torso box and a bumper sphere), with a fixed world sphere (sw),
+    with the torso box's face quadrature against body spheres (bs)."""
+    import drake_ddp_tpu_torch.contact.geometry as geom
+    import drake_ddp_tpu_torch.multibody.model as model_mod
+    from drake_ddp_tpu_torch.contact.forces import ContactForceParams
+    from drake_ddp_tpu_torch.ops._table import StepKernelData
+    from drake_ddp_tpu_torch.ops.megastep import megastep
+    from drake_ddp_tpu_torch.models.small import (manipulation_states,
+                                                  small_manipulation)
+
+    model, contact = small_manipulation(model_mod, geom, families,
+                                        device=card)
+    assert {"ss": contact.pair_ss_a, "sw": contact.pair_sw_s,
+            "bs": contact.pair_bs_b}[families[-1]]
+    kd = StepKernelData(model, contact, 2e-3, contact_iters=6,
+                        force_params=ContactForceParams(smooth_width=1e-3))
+    x, u = manipulation_states(model, 64, 4)
+    x64, u64 = torch.as_tensor(x, device=card), torch.as_tensor(u, device=card)
+    truth = kd.step(x64, u64)
+    plain = kd.step(x64.float(), u64.float())
+    got = megastep(kd, x64.float().contiguous(), u64.float().contiguous())
+    torch.cuda.synchronize()
+    e_plain = (plain.double() - truth).abs().max().item()
+    e_kern = (got.double() - truth).abs().max().item()
+    assert e_kern <= 3.0 * e_plain + 1e-5, (e_kern, e_plain)
+
+
 def _chip_smoke():
     """chip_smoke.py at the repo root, loaded by its path."""
     spec = importlib.util.spec_from_file_location(

@@ -216,6 +216,43 @@ def test_megajac_matches_plain_lane_jac_contact_families(card, root):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("root", [True, False], ids=["root", "cold"])
+def test_megajac_matches_plain_lane_jac_manipulation_families(card, root):
+    """The ss, sw and bs families (the small manipulation model), held as
+    chip_smoke.py holds the manipulation models: at contact_iters 6 the
+    plain float32 cold root is another one on many of these violent
+    states, so jac_check leaves those lanes out (up to half) and holds
+    them to the plain float64 Jacobian alone, within FLIP_LANE_REL of the
+    lane's scale."""
+    import drake_ddp_tpu_torch.contact.geometry as geom
+    import drake_ddp_tpu_torch.multibody.model as model_mod
+    from drake_ddp_tpu_torch.contact.forces import ContactForceParams
+    from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.models.small import (manipulation_states,
+                                                  small_manipulation)
+
+    model, contact = small_manipulation(model_mod, geom, device=card)
+    system = make_multibody_system(
+        model, contact, 2e-3, contact_iters=6,
+        force_params=ContactForceParams(smooth_width=1e-3))
+    kd = kernel_data_for_system(system)
+    x, u = manipulation_states(model, 64, 4)
+    f32 = lambda a: torch.as_tensor(a, device=card).float().double()
+    x64, u64 = f32(x).contiguous(), f32(u).contiguous()
+    args = (x64.float(), u64.float()) + (
+        (kd.step(x64, u64).float(),) if root else ())
+    got = megajac(kd, *args)
+    torch.cuda.synchronize()
+    cs = _chip_smoke()
+    ok, report = cs.jac_check(kd, x64, u64, got, root, max_flips=32)
+    assert ok, report
+    assert report["err_kernel_vs_f64_rel_flip_lanes_max"] <= \
+        cs.FLIP_LANE_REL, report
+
+
+@pytest.mark.cuda
 def test_megajac_rejects_what_it_does_not_take(card):
     from drake_ddp_tpu_torch.examples import mini_cheetah as mc
     from drake_ddp_tpu_torch.ops._table import kernel_data_for_system

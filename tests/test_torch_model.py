@@ -215,14 +215,23 @@ PER_SCENARIO = ("__init__.py", "dynamics/__init__.py", "dynamics/base.py",
                 "dynamics/analytic.py", "multibody/plant.py",
                 "solver/ilqr.py", "solver/api.py", "examples/pendulum.py",
                 "examples/cart_pole.py", "examples/mini_cheetah.py")
+# the manipulation slice's modules
+MANIPULATION = ("utils/spatial.py", "multibody/algorithms.py",
+                "models/registry.py", "models/small.py",
+                "models/_data_panda_fr3.py", "models/_data_kinova_gen3.py", "models/_data_gripper_static.py",
+                "models/_data_gripper_articulated.py", "io/urdf.py",
+                "ops/_table.py", "examples/_arm.py", "examples/panda_fr3.py",
+                "examples/kinova_gen3.py")
 
 
-@pytest.mark.parametrize("where", ["package", "chip_smoke", "per_scenario"])
+@pytest.mark.parametrize("where", ["package", "chip_smoke", "per_scenario",
+                                   "manipulation"])
 def test_port_imports_no_jax(where):
     if where == "package":
         files = sorted((REPO / "drake_ddp_tpu_torch").rglob("*.py"))
-    elif where == "per_scenario":
-        files = [REPO / "drake_ddp_tpu_torch" / f for f in PER_SCENARIO]
+    elif where in ("per_scenario", "manipulation"):
+        files = [REPO / "drake_ddp_tpu_torch" / f for f in (
+            PER_SCENARIO if where == "per_scenario" else MANIPULATION)]
         assert all(f.is_file() for f in files)
     else:
         files = [REPO / "chip_smoke.py"]
