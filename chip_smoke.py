@@ -33,7 +33,17 @@ the plain float64 one, the Kinova run held to the JAX goldens' ball
 checks (the Panda's printed: its run stops short, PERF.md) and a run of
 each on the plain float32 Jacobian held to them; and each kernel held
 and timed on the Panda, the Kinova with its pads as box-face quadrature
-(141 contacts) and a small model with sphere-world pairs.
+(141 contacts) and a small model with sphere-world pairs.  Then the
+classic tasks: the cart-pole wall's ``run()`` at its ``Config()`` (8
+starts of one batched solve on megaroll and the cold megajac; a
+prismatic cart, a rigid world box) held to the JAX golden's task checks,
+and the three kernels held and timed on that model at the inputs of the
+run's last megaroll and megajac calls (64 and 792 lanes); the acrobot
+(N 750) with the associative-scan Riccati and the sequential sweep
+against the JAX golden, its MPC chain (``mpc_solve``, 51 solves) against
+JAX's own run of it, the pendulum, cart-pole and acrobot with
+``method="sqp"`` (direct transcription) against JAX's costs, and the two
+Riccati routes alone over batch, horizon and state size.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without that line.  Needs a CUDA card; exits 2
@@ -1633,6 +1643,422 @@ def _manip_result(results, kernel, label, lanes, ms, plain_ms, bound,
                           max_abs_err=err)
 
 
+# --- the classic tasks: the cart-pole wall, the acrobot, direct
+# transcription and the two Riccati routes ----------------------------------
+
+WALL_GOLDEN = 5.7024        # the JAX golden (tests/test_examples.py)
+WALL_ROLL_LANES = 64        # 8 starts x ls_parallel 8 candidates
+WALL_JAC_LANES = 792        # 8 starts x 99 steps
+ACROBOT_GOLDEN = 1.7154926  # the JAX golden (tests/test_golden.py)
+# JAX mpc_solve of the acrobot example at Config(MPC=True) (N 750, 50
+# resolves of 2 steps, max_iters 100, parallel_backward), float32 on a CPU:
+# each solve's cost and iterations
+ACROBOT_MPC_JAX_COSTS = (
+    1.7137356, 1.6979198, 1.6872889, 1.6787853, 1.6710418, 1.6634380,
+    1.6556842, 1.6476313, 1.6391939, 1.6303339, 1.6210126, 1.6112061,
+    1.6009077, 1.5901133, 1.5788556, 1.5671560, 1.5550646, 1.5426550,
+    1.5299997, 1.5172025, 1.5043318, 1.4914972, 1.4787630, 1.4662220,
+    1.4539446, 1.4419549, 1.4303071, 1.4190361, 1.4081594, 1.3976756,
+    1.3875879, 1.3779217, 1.3686434, 1.3597457, 1.3512344, 1.3430836,
+    1.3352871, 1.3278240, 1.3206972, 1.3138760, 1.3073546, 1.3011204,
+    1.2951688, 1.2894775, 1.2840351, 1.2788297, 1.2738513, 1.2690934,
+    1.2645397, 1.2601784, 1.2560183)
+ACROBOT_MPC_JAX_ITERATIONS = (25,) + (3,) * 50
+ACROBOT_MPC_RESOLVES = 50   # the chain the smoke runs (Config(): 50)
+# JAX's method="sqp" runs of the three examples at Config(), float32 on a
+# CPU: their costs, and how far a cost may sit from them.  The spread is
+# what rounding alone gives: the two packages' float32 and float64 CPU
+# runs of the same program (1800 Adam steps, 24 Gauss-Newton solves)
+# spread -5.7% (pendulum), 1e-6 (cart-pole) and -6% .. +19% (acrobot)
+# around these values
+SQP_JAX = {"pendulum": 0.24023889, "cart_pole": 52.745644,
+           "acrobot": 18.352528}
+SQP_REL = {"pendulum": 0.10, "cart_pole": 0.01, "acrobot": 0.25}
+RICCATI_SHAPES = ((37, 12), (4, 1))   # the cheetah's (n, m), the acrobot's
+RICCATI_HORIZONS = (50, 750)
+RICCATI_BATCHES = (1, 8, 64, 256)
+
+
+def run_wall():
+    """cart_pole_with_wall.run(Config()) on the card, the counts set to 0
+    just before: a dict of the best start's states and cost, the
+    MultistartResult, the phase timer, wall seconds, launch counts, host
+    syncs and the inputs of the run's last megaroll and megajac calls (a
+    copy on the card, taken before the call)."""
+    import torch
+    from drake_ddp_tpu_torch.examples import cart_pole_with_wall as wall
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.ops.megastep import megastep
+    from drake_ddp_tpu_torch.solver import batched
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+    timer, last, res = PhaseTimer(), {}, []
+    make_roll, make_jac = batched.megaroll_for_system, \
+        batched.megajac_for_system
+
+    def keep(name, fn):
+        def f(*args):
+            last[name] = tuple(a.clone() for a in args)
+            return fn(*args)
+        return f
+
+    batched.megaroll_for_system = lambda s: keep("megaroll", make_roll(s))
+    batched.megajac_for_system = lambda s, root_seed: keep(
+        "megajac", make_jac(s, root_seed))
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, _, _, cost = wall.run(wall.Config(verbose=False),
+                                      device="cuda", timer=timer,
+                                      on_result=res.append)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(megaroll=megaroll.launches, megajac=megajac.launches,
+                      megastep=megastep.launches,
+                      syncs=batched.any_lane.syncs)
+    finally:
+        batched.megaroll_for_system = make_roll
+        batched.megajac_for_system = make_jac
+    return dict(states=states, cost=cost, res=res[0], timer=timer,
+                seconds=secs, last=last, **counts)
+
+
+def phase_ms(timer):
+    """A solve's device phases (ms): rollout, jac, lerp (derivatives
+    less the Jacobian) and riccati, with the Riccati ms per round."""
+    t = timer.totals_ms()
+    rounds = timer.counts["riccati"]
+    return {"rollout": t.get("rollout", 0.0), "jac": t.get("jac", 0.0),
+            "lerp": t.get("derivs", 0.0) - t.get("jac", 0.0),
+            "riccati": t.get("riccati", 0.0), "rounds": rounds,
+            "riccati_per_round": t.get("riccati", 0.0) / max(rounds, 1)}
+
+
+def phase_scenario_wall():
+    """The cart-pole wall's run() at Config() (T 1, N 100, contact_iters 2,
+    8 starts of one batched solve, max_iters 60): a prismatic cart, a
+    revolute pole, the tip ball against a rigid world box.  Fails unless
+    the best start meets the JAX golden's task checks (pole within 0.25
+    of upright at the end, the tip at the wall: x < -0.39, every state
+    and the cost finite), megaroll launched once a linesearch chunk and
+    the cold megajac once a fresh-derivative round, and megastep never.
+    The best cost is printed beside the JAX golden, not held to it: the
+    chain is chaotic at contact_iters 2 and the port's draws are not
+    JAX's (PERF.md)."""
+    import numpy as np
+    run = run_wall()
+    x, res, timer = run["states"], run["res"], run["timer"]
+    chunks, jac_rounds = timer.counts["rollout"], timer.counts["jac"]
+    tip = x[0] + 0.5 * np.sin(x[1])
+    task = dict(final_angle_err=float(abs(x[1, -1] - math.pi)),
+                tip_x_min=float(tip.min()),
+                finite=bool(np.isfinite(x).all()
+                            and math.isfinite(run["cost"])))
+    met = bool(task["finite"] and task["final_angle_err"] < 0.25
+               and task["tip_x_min"] < -0.39)
+    ok = (met and run["megaroll"] == chunks > 0
+          and run["megajac"] == jac_rounds > 0 and run["megastep"] == 0)
+    emit({"phase": "scenario_wall", "ok": ok, **task, "task_met": met,
+          "best_cost": run["cost"], "golden_jax": WALL_GOLDEN,
+          "best_index": int(res.best_index),
+          "start_costs": res.costs.cpu().tolist(),
+          "best_iterations": int(res.best.iterations),
+          "seconds": run["seconds"], "phase_ms": phase_ms(timer),
+          "host_syncs": run["syncs"], "linesearch_chunks": chunks,
+          "megaroll_launches": run["megaroll"],
+          "fresh_derivative_rounds": jac_rounds,
+          "megajac_cold_launches": run["megajac"],
+          "megastep_launches": run["megastep"],
+          "roll_lanes": run["last"]["megaroll"][0].shape[-1],
+          "jac_lanes": run["last"]["megajac"][0].shape[-1],
+          "criterion": "best start: |theta_end - pi| < 0.25, tip x < -0.39, "
+                       "finite; megaroll launches == linesearch chunks, "
+                       "cold megajac launches == fresh-derivative rounds, "
+                       "no megastep launch"})
+    if not ok:
+        fail("scenario_wall", "the task checks failed or the run left its "
+                              "kernels")
+    return run
+
+
+def phase_wall_kernels(results, run):
+    """megastep, megaroll and the cold megajac on the cart-pole-wall
+    model (a prismatic joint, a world box, a rigid wall) at the main
+    path's shapes: megaroll on the inputs of the wall run's last
+    linesearch chunk (64 lanes), the cold megajac on its last Jacobian
+    call's (792 lanes), megastep on the first 64 of those; each held with
+    the flagship's pins and timed."""
+    import torch
+    from drake_ddp_tpu_torch.examples import cart_pole_with_wall as wall
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll, rollout_plain
+    from drake_ddp_tpu_torch.ops.megastep import megastep
+    kd = kernel_data_for_system(wall.build_system(wall.Config(),
+                                                  device="cuda"))
+    n, m = kd.n, kd.m
+    x32, u32 = run["last"]["megajac"]
+    tapes32 = run["last"]["megaroll"]
+    L, R, T = x32.shape[-1], tapes32[0].shape[-1], tapes32[2].shape[0]
+    meta = dict(model="cart_pole_wall", contacts=kd.sizes[4],
+                contact_iters=kd.contact_iters)
+    bad = [] if (L, R) == (WALL_JAC_LANES, WALL_ROLL_LANES) else [
+        f"lanes {R} / {L}, not {WALL_ROLL_LANES} / {WALL_JAC_LANES}"]
+    # megastep
+    xs, us = x32[:, :R].contiguous(), u32[:, :R].contiguous()
+    truth = kd.step(xs.double(), us.double())
+    plain32 = kd.step(xs, us)
+    got = megastep(kd, xs, us)
+    torch.cuda.synchronize()
+    e_plain = (plain32.double() - truth).abs().max().item()
+    e_kern = (got.double() - truth).abs().max().item()
+    ok = math.isfinite(e_kern) and e_kern <= 3.0 * e_plain + 1e-5
+    err = (got - plain32).abs().max().item()
+    ms = cuda_ms(lambda: megastep(kd, xs, us), 5)
+    plain_ms = cuda_ms(lambda: kd.step(xs, us), 2)
+    b = bound_ms((2 * n + m) * R * 4, step_ops(kd) * R)
+    emit({"phase": "wall_megastep", "ok": ok, **meta, "lanes": R,
+          "err_kernel_vs_f64": e_kern, "err_plain_f32_vs_f64": e_plain,
+          "criterion": "err_kernel <= 3 err_plain + 1e-5",
+          "max_abs_err_vs_plain_f32": err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": b[0], "bound_by": b[1]})
+    _wall_result(results, "megastep", R, ms, plain_ms, b, err, 0)
+    bad += [] if ok else ["megastep"]
+    # megaroll
+    tapes64 = [a.double() for a in tapes32]
+    xr, ur = megaroll(kd, *tapes32)
+    torch.cuda.synchronize()
+    ok, report = rollout_step_check(kd, tapes64, xr, ur)
+    ms = cuda_ms(lambda: megaroll(kd, *tapes32), 5)
+    plain_ms = cuda_ms(lambda: rollout_plain(kd.step, *tapes32), 1)
+    b = bound_ms((n + 1 + T * (3 * m + m * n + 2 * n)) * R * 4,
+                 T * R * (step_ops(kd) + 2 * m * n + n + 3 * m))
+    emit({"phase": "wall_megaroll", "ok": ok, **meta, "lanes": R,
+          "steps": T, **report, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": b[0], "bound_by": b[1]})
+    _wall_result(results, "megaroll", R, ms, plain_ms, b,
+                 report["max_abs_err_vs_plain_f32_held"], run["megaroll"])
+    bad += [] if ok else ["megaroll"]
+    # the cold megajac
+    got = megajac(kd, x32, u32)
+    torch.cuda.synchronize()
+    ok, jrep = jac_check(kd, x32.double(), u32.double(), got, False,
+                         max_flips=L // 2)
+    ok = ok and jrep["err_kernel_vs_f64_rel_flip_lanes_max"] <= FLIP_LANE_REL
+    ms = cuda_ms(lambda: megajac(kd, x32, u32), 5)
+    plain_ms = cuda_ms(lambda: kd.lane_jac(False)(x32, u32), 1)
+    b = bound_ms(((n + m) + n * (n + m)) * L * 4, jac_ops(kd, False) * L)
+    emit({"phase": "wall_megajac_cold", "ok": ok, **meta, **jrep, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1]})
+    _wall_result(results, "megajac_cold", L, ms, plain_ms, b,
+                 jrep["max_abs_err_vs_plain_f32"], run["megajac"])
+    bad += [] if ok else ["megajac_cold"]
+    if bad:
+        fail("wall_kernels", "outside tolerance: " + ", ".join(bad))
+
+
+def _wall_result(results, kernel, lanes, ms, plain_ms, bound, err,
+                 launches):
+    results[kernel]["cart_pole_wall"] = dict(
+        lanes=lanes, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], max_abs_err=err, launches=launches)
+
+
+def run_acrobot(**cfg):
+    """acrobot.run(Config(verbose=False, **cfg)) on the card with a phase
+    timer: (states, cost or costs, solution or MPCResult, timer, wall
+    seconds)."""
+    import torch
+    from drake_ddp_tpu_torch.examples import acrobot
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+    timer, sols = PhaseTimer(), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, _, _, cost = acrobot.run(acrobot.Config(verbose=False, **cfg),
+                                     device="cuda", timer=timer,
+                                     on_solve=sols.append)
+    torch.cuda.synchronize()
+    return states, cost, sols[0], timer, time.perf_counter() - t0
+
+
+def phase_scenario_acrobot():
+    """The acrobot example (N 750, the longest horizon) at
+    Config(max_iters=60) with the associative-scan Riccati and with the
+    sequential sweep: each cost within 1% of the JAX golden and the final
+    angle within 0.05 of pi; the Riccati ms per round of each printed."""
+    rows, ok = {}, True
+    for route, pb in (("parscan", True), ("sequential", False)):
+        x, cost, sol, timer, secs = run_acrobot(max_iters=60,
+                                                parallel_backward=pb)
+        rel = abs(cost - ACROBOT_GOLDEN) / ACROBOT_GOLDEN
+        angle = abs(float(x[0, -1]) - math.pi)
+        good = bool(rel <= 0.01 and angle < 0.05)
+        ok = ok and good
+        rows[route] = dict(ok=good, cost=cost, cost_rel_to_golden=rel,
+                           final_angle_err=angle,
+                           iterations=int(sol.iterations), seconds=secs,
+                           phase_ms=phase_ms(timer))
+    emit({"phase": "scenario_acrobot", "ok": ok, "golden_jax": ACROBOT_GOLDEN,
+          "horizon": 750, **rows,
+          "criterion": "each route: cost within 1% of the JAX golden, "
+                       "|theta1_end - pi| < 0.05"})
+    if not ok:
+        fail("scenario_acrobot", "a Riccati route misses the golden")
+
+
+def phase_scenario_acrobot_mpc():
+    """The acrobot example's MPC mode (mpc_solve, N 750, replans of 2
+    steps, parscan) with ACROBOT_MPC_RESOLVES resolves: every cost finite,
+    the stitched states of shape (4, 750 + 2 resolves), and each solve
+    held to JAX's float32 CPU run of the same chain with the chain-level
+    pins (iterations +-1, cost within 15%)."""
+    import numpy as np
+    R = ACROBOT_MPC_RESOLVES
+    x, costs, res, timer, secs = run_acrobot(MPC=True, num_resolves=R)
+    iters = res.iterations.cpu().numpy()
+    ref_c = np.asarray(ACROBOT_MPC_JAX_COSTS[:R + 1])
+    ref_i = np.asarray(ACROBOT_MPC_JAX_ITERATIONS[:R + 1])
+    d_it = iters - ref_i
+    c_rel = np.abs(costs - ref_c) / ref_c
+    ok = bool(np.isfinite(costs).all() and x.shape == (4, 750 + 2 * R)
+              and np.isfinite(x).all() and (np.abs(d_it) <= 1).all()
+              and (c_rel <= 0.15).all()
+              and not res.diverged.cpu().numpy().any())
+    emit({"phase": "scenario_acrobot_mpc", "ok": ok, "resolves": R,
+          "resolves_config": 50, "states_shape": list(x.shape),
+          "costs": costs.tolist(), "iterations": iters.tolist(),
+          "iterations_diff_max": int(np.abs(d_it).max()),
+          "cost_rel_max": float(c_rel.max()), "final_cost": float(costs[-1]),
+          "final_cost_jax": float(ref_c[-1]), "seconds": secs,
+          "phase_ms": phase_ms(timer),
+          "criterion": "costs finite, states (4, 750 + 2 R), none diverged, "
+                       "each solve: iterations within 1 and cost within 15% "
+                       "of JAX's float32 CPU chain"})
+    if not ok:
+        fail("scenario_acrobot_mpc", "the chain left JAX's pins")
+
+
+def phase_scenario_sqp():
+    """The pendulum, cart-pole and acrobot examples with method="sqp"
+    (the direct-transcription baseline: penalty homotopy, Adam, damped
+    Gauss-Newton) on the card: each cost finite and within SQP_REL of
+    JAX's float32 CPU run."""
+    import importlib
+    import numpy as np
+    import torch
+    rows, ok = {}, True
+    for name in ("pendulum", "cart_pole", "acrobot"):
+        ex = importlib.import_module(f"drake_ddp_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _, _, cost = ex.run(ex.Config(method="sqp", verbose=False),
+                               device="cuda")
+        secs = time.perf_counter() - t0
+        rel = (cost - SQP_JAX[name]) / SQP_JAX[name]
+        good = bool(np.isfinite(x).all() and math.isfinite(cost)
+                    and abs(rel) <= SQP_REL[name])
+        ok = ok and good
+        rows[name] = dict(ok=good, cost=cost, cost_jax=SQP_JAX[name],
+                          cost_rel=rel, tol=SQP_REL[name],
+                          final_state=x[:, -1].tolist(), seconds=secs)
+    emit({"phase": "scenario_sqp", "ok": ok, **rows})
+    if not ok:
+        fail("scenario_sqp", "a transcription cost outside its tolerance")
+
+
+def riccati_problem(B, N, n, m, gen):
+    """A seeded float32 Riccati sweep's inputs on the card: SPD weights,
+    linearizations near the identity ((prob, x_bar, u_bar, fx, fu))."""
+    import torch
+    from drake_ddp_tpu_torch.solver.ilqr import ILQRProblem
+    dev = torch.device("cuda")
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    eye = lambda d: torch.eye(d, device=dev)
+    spd = lambda d, s: (lambda a: a @ a.transpose(-1, -2) / d
+                        + s * eye(d))(r(B, d, d))
+    prob = ILQRProblem(x0=r(B, n), x_nom=r(B, n), Q=spd(n, 0.1),
+                       R=spd(m, 0.1), Qf=spd(n, 1.0), u_init=r(B, N - 1, m))
+    fx = eye(n) + 0.1 / n ** 0.5 * r(B, N - 1, n, n)
+    fu = 0.3 / n ** 0.5 * r(B, N - 1, n, m)
+    return prob, r(B, N, n), r(B, N - 1, m), fx, fu
+
+
+def riccati_route_rows(gen, timed_sweeps=3):
+    """For every (n, m) x N x B of RICCATI_SHAPES x RICCATI_HORIZONS x
+    RICCATI_BATCHES, a seeded float32 sweep through the sequential pass
+    and the associative scan: ms per sweep (CUDA events around
+    ``timed_sweeps`` back-to-back sweeps, one at the largest sizes, after
+    one untimed sweep; host enqueue gaps count) and parscan's largest
+    deviation from the sequential kappa and K, relative to its scale."""
+    import torch
+    from drake_ddp_tpu_torch.solver.ilqr import ILQRConfig, _backward_pass
+    from drake_ddp_tpu_torch.solver.parscan import parallel_backward_pass
+
+    def timed(fn, reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    rows = []
+    for n, m in RICCATI_SHAPES:
+        for N in RICCATI_HORIZONS:
+            for B in RICCATI_BATCHES:
+                args = riccati_problem(B, N, n, m, gen)
+                reg = torch.full((B,), 1e-6, device="cuda")
+                cfg = ILQRConfig(num_steps=N)
+                seq = lambda: _backward_pass(cfg, *args, reg)
+                par = lambda: parallel_backward_pass(cfg, *args, reg)
+                (ks, Ks, _), (kp_, Kp, _) = seq(), par()
+                err = max(((kp_ - ks).abs().max() / ks.abs().max()).item(),
+                          ((Kp - Ks).abs().max() / Ks.abs().max()).item())
+                reps = 1 if N * B * n >= 750 * 64 * 37 else timed_sweeps
+                seq_ms, par_ms = timed(seq, reps), timed(par, reps)
+                rows.append(dict(n=n, m=m, N=N, B=B, sequential_ms=seq_ms,
+                                 parscan_ms=par_ms,
+                                 speedup=seq_ms / par_ms, rel_err=err))
+                del args, ks, Ks, kp_, Kp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_riccati_routes():
+    """The sequential sweep against the associative scan alone
+    (riccati_route_rows): ms per sweep printed, agreement gated (kappa
+    and K within 1e-4 of the sequential sweep's scale); and the float32
+    scan against the float64 sequential pass at the JAX package's pin
+    (tests/test_parscan.py: N 100, n 4, m 1, K within 1e-3 of scale)."""
+    import torch
+    from drake_ddp_tpu_torch.solver.ilqr import (ILQRConfig, ILQRProblem,
+                                                 _backward_pass)
+    from drake_ddp_tpu_torch.solver.parscan import parallel_backward_pass
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    args = riccati_problem(1, 100, 4, 1, gen)
+    reg = torch.full((1,), 1e-6, device="cuda")
+    cfg = ILQRConfig(num_steps=100)
+    f64 = (ILQRProblem(*(a.double() for a in args[0][:6])),
+           *(a.double() for a in args[1:]))
+    _, K64, _ = _backward_pass(cfg, *f64, reg.double())
+    _, K32, _ = parallel_backward_pass(cfg, *args, reg)
+    f32_err = ((K32.double() - K64).abs().max() / K64.abs().max()).item()
+    rows = riccati_route_rows(gen)
+    ok = f32_err < 1e-3 and all(math.isfinite(r["rel_err"])
+                                and r["rel_err"] <= 1e-4 for r in rows)
+    emit({"phase": "riccati_routes", "ok": ok,
+          "parscan_f32_vs_sequential_f64": f32_err, "rows": rows,
+          "criterion": "parscan's kappa and K within 1e-4 of the sequential "
+                       "sweep's scale in every row; float32 parscan's K "
+                       "within 1e-3 of scale of the float64 sequential pass "
+                       "(N 100, n 4, m 1); times printed, not gated"})
+    if not ok:
+        fail("riccati_routes", "the two routes disagree")
+
+
 def main():
     try:
         import torch
@@ -1675,6 +2101,12 @@ def main():
     runs = {name: phase_scenario_arm(name, results)
             for name in ("panda", "kinova")}
     phase_manip_kernels(results, runs)
+    wall = phase_scenario_wall()
+    phase_wall_kernels(results, wall)
+    phase_scenario_acrobot()
+    phase_scenario_acrobot_mpc()
+    phase_scenario_sqp()
+    phase_riccati_routes()
     print(card)
     emit({"kernels": [results[k] for k in ("megastep", "megaroll",
                                            "megajac", "megajac_cold")]})

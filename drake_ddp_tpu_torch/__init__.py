@@ -10,7 +10,9 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU with ``device="cpu"``; the CUDA kernels under ``csrc/`` are
 built at first use into ``build/drake_ddp_tpu_torch/``.  The per-scenario
 surface is :class:`IterativeLinearQuadraticRegulator` (and
-:func:`solve_ilqr` under it); the batched one is
+:func:`solve_ilqr` under it, :func:`mpc_solve`,
+:func:`multistart_ilqr` and the direct-transcription baseline
+:func:`solve_transcription`); the batched one is
 :func:`mpc_solve_batched` and :func:`solve_ilqr_batched`.
 """
 
@@ -28,6 +30,7 @@ from drake_ddp_tpu_torch._device import resolve_device  # noqa: E402
 from drake_ddp_tpu_torch.dynamics.base import DiscreteSystem  # noqa: E402
 from drake_ddp_tpu_torch.mpc.driver import (  # noqa: E402
     MPCConfig,
+    mpc_solve,
     mpc_solve_batched,
 )
 from drake_ddp_tpu_torch.solver.api import (  # noqa: E402
@@ -43,6 +46,13 @@ from drake_ddp_tpu_torch.solver.ilqr import (  # noqa: E402
 from drake_ddp_tpu_torch.solver.keypoints import (  # noqa: E402
     DerivsInterpolation,
 )
+from drake_ddp_tpu_torch.solver.multistart import (  # noqa: E402
+    multistart_ilqr,
+)
+from drake_ddp_tpu_torch.solver.transcription import (  # noqa: E402
+    TranscriptionConfig,
+    solve_transcription,
+)
 
 __all__ = [
     "resolve_device",
@@ -54,6 +64,10 @@ __all__ = [
     "IterativeLinearQuadraticRegulator",
     "DerivsInterpolation",
     "MPCConfig",
+    "mpc_solve",
     "mpc_solve_batched",
     "solve_ilqr_batched",
+    "multistart_ilqr",
+    "TranscriptionConfig",
+    "solve_transcription",
 ]

@@ -4,7 +4,7 @@ Port of ``drake_ddp_tpu/examples/cart_pole.py``: T = 2.0, dt = 0.01,
 x0 = 0, x_nom = [0, pi, 0, 0], Q = diag([10, 10, 0.1, 0.1]), R = 0.001 I,
 Qf = diag([100, 100, 10, 10]), beta = 0.9.  Derivative interpolation:
 setInterval; adaptiveJerk and iterativeError come with a later slice of
-the port and raise.
+the port and raise (ROADMAP Queue 1, item 10).
 
     python -m drake_ddp_tpu_torch.examples.cart_pole         # on the card
 """
@@ -26,8 +26,8 @@ class Config:
     T: float = 2.0
     dt: float = 1e-2
     beta: float = 0.9
-    # "ilqr" or "sqp"; "sqp" (the direct-transcription baseline) comes
-    # with a later slice of the port and raises
+    # "ilqr" or "sqp" (the direct-transcription baseline,
+    # solver/transcription.py)
     method: str = "ilqr"
     # derivative interpolation
     use_derivative_interpolation: bool = False

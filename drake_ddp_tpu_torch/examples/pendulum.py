@@ -24,8 +24,8 @@ class Config:
     delta: float = 1e-2
     beta: float = 0.95
     gamma: float = 0.0
-    # "ilqr" or "sqp"; "sqp" (the direct-transcription baseline) comes
-    # with a later slice of the port and raises
+    # "ilqr" or "sqp" (the direct-transcription baseline,
+    # solver/transcription.py)
     method: str = "ilqr"
     verbose: bool = True
 

@@ -1,8 +1,10 @@
-"""Batched receding-horizon MPC driver.
+"""Receding-horizon MPC driver, batched and per scenario.
 
-Port of the batched half of ``drake_ddp_tpu/mpc/driver.py``: an initial
-solve plus ``num_resolves`` resolves of a scenario batch, each resolve
-warm-started from the previous one:
+Port of ``drake_ddp_tpu/mpc/driver.py``: an initial solve plus
+``num_resolves`` resolves of a scenario batch (:func:`mpc_solve_batched`)
+or of one scenario (:func:`mpc_solve`, the batched driver at B = 1 on
+the per-scenario kernels), each resolve warm-started from the previous
+one:
 
 - warm start: keep the tail of the last optimal control tape and repeat
   the final input for the new steps (optionally with the previous
@@ -27,7 +29,12 @@ import torch
 
 from drake_ddp_tpu_torch.dynamics.base import DiscreteSystem
 from drake_ddp_tpu_torch.solver.batched import solve_ilqr_batched
-from drake_ddp_tpu_torch.solver.ilqr import ILQRConfig, ILQRProblem
+from drake_ddp_tpu_torch.solver.ilqr import (
+    ILQRConfig,
+    ILQRProblem,
+    scenario_routes,
+    unbatch,
+)
 
 
 class MPCConfig(NamedTuple):
@@ -50,6 +57,9 @@ class MPCConfig(NamedTuple):
 
 
 class MPCResult(NamedTuple):
+    """Leading axis B from :func:`mpc_solve_batched`; none from
+    :func:`mpc_solve`."""
+
     states: torch.Tensor      # (B, N + resolves*replan, n) stitched traj
     costs: torch.Tensor       # (B, num_resolves + 1) optimal cost per solve
     iterations: torch.Tensor  # (B, num_resolves + 1) iLQR iterations
@@ -61,6 +71,11 @@ class MPCResult(NamedTuple):
     # ILQRProblem.frozen and ``consec0``
     dead: Optional[torch.Tensor] = None      # (B,) latched-dead flags
     consec: Optional[torch.Tensor] = None    # (B,) consecutive failures
+
+
+def shift_warm_start(u: torch.Tensor, replan_steps: int) -> torch.Tensor:
+    """u (N-1, m): drop the first replan_steps inputs, repeat the last."""
+    return _shift_tape(u, replan_steps, time_axis=0)
 
 
 def shift_warm_start_batched(u: torch.Tensor,
@@ -96,10 +111,12 @@ def mpc_solve_batched(
     consec0: Optional[torch.Tensor] = None,
     rescue_u: Optional[torch.Tensor] = None,
     timer=None,
+    root_seed=None,
 ) -> MPCResult:
     """Initial solve + ``mpc.num_resolves`` receding-horizon resolves of a
     batch: ``prob`` leaves carry a leading batch axis B and the MPCResult
-    leaves do too.
+    leaves do too.  ``rollout_kernel``, ``deriv_kernel`` and ``root_seed``
+    as in :func:`solve_ilqr_batched`.
 
     ``x_nom_shift``: optional (n,) target advance applied once per resolve.
     ``consec0``: optional (B,) consecutive-failure counts carried in from
@@ -116,7 +133,7 @@ def mpc_solve_batched(
     solve = lambda p: solve_ilqr_batched(system, cfg, p,
                                          rollout_kernel=rollout_kernel,
                                          deriv_kernel=deriv_kernel,
-                                         timer=timer)
+                                         root_seed=root_seed, timer=timer)
     B, n = prob.x0.shape
     dev = prob.x0.device
     dead_prior = (prob.frozen if prob.frozen is not None
@@ -211,3 +228,29 @@ def mpc_solve_batched(
         states=states, costs=stack(costs), iterations=stack(iters),
         diverged=stack(divs), final_x=x_prev, final_u=u_prev,
         final_K=K_prev, dead=dead, consec=consec)
+
+
+def mpc_solve(
+    system: DiscreteSystem,
+    cfg: ILQRConfig,
+    prob: ILQRProblem,
+    mpc: MPCConfig,
+    x_nom_shift: Optional[torch.Tensor] = None,
+    consec0: Optional[torch.Tensor] = None,
+    rescue_u: Optional[torch.Tensor] = None,
+    timer=None,
+) -> MPCResult:
+    """Initial solve + ``mpc.num_resolves`` resolves of one scenario:
+    ``prob`` without a batch axis (x0 (n,), u_init (N-1, m), ...), the
+    MPCResult likewise (states (N + resolves*replan, n), costs
+    (num_resolves + 1,), dead and consec 0-dim).
+
+    :func:`mpc_solve_batched` at B = 1 on the kernels that
+    :func:`~drake_ddp_tpu_torch.solver.ilqr.scenario_routes` picks by the
+    system, as :func:`~drake_ddp_tpu_torch.solver.ilqr.solve_ilqr`.
+    ``consec0`` (0-dim) and ``rescue_u`` ((N-1, m)) as there."""
+    one = lambda a: None if a is None else a[None]
+    return unbatch(mpc_solve_batched(
+        system, cfg, ILQRProblem(*map(one, prob)), mpc,
+        x_nom_shift=x_nom_shift, consec0=one(consec0), rescue_u=rescue_u,
+        timer=timer, **scenario_routes(system)))

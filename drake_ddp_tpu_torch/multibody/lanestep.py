@@ -531,7 +531,9 @@ def _narrowphase_T(cm: ContactModel, C: LaneConsts, centers, box_R_w,
         delta = local - clamped
         dist_out = torch.sqrt(torch.sum(delta * delta, 0))
         inside_gap = half - torch.abs(local)
-        min_gap = torch.min(inside_gap, dim=0).values
+        # amin, not min(dim=...): on the CPU the index-returning reduction
+        # takes ~10 ms a call under intra-op threads at these sizes
+        min_gap = torch.amin(inside_gap, dim=0)
         inside = dist_out < 1e-9
         # inner-face normal: one-hot of the min gap, ties broken toward
         # the first axis (x, y, z); sign(0) = 0

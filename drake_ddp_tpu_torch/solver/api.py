@@ -79,11 +79,6 @@ class IterativeLinearQuadraticRegulator:
         deriv_kernel: Optional[str] = None,
         timer: Optional[PhaseTimer] = None,
     ):
-        if parallel_backward:
-            raise NotImplementedError(
-                "parallel_backward (the associative-scan Riccati sweep of "
-                "solver/parscan.py) comes with a later slice of the port "
-                "(ROADMAP Queue 1 item 12)")
         self.device = resolve_device(device)
         if is_multibody(system) and not _same_device(
                 system.params[0].device, self.device):
@@ -105,6 +100,7 @@ class IterativeLinearQuadraticRegulator:
             # None -> ILQRConfig's adaptive-regularization default
             **({} if reg is None else dict(reg=float(reg))),
             derivs=derivs,
+            parallel_backward=bool(parallel_backward),
         )
         self.dtype = dtype or torch.float32
         self.verbose = verbose
@@ -203,25 +199,35 @@ class IterativeLinearQuadraticRegulator:
         print(f"total solve time: {solve_time:.4f} s")
 
     def SolveDirectTranscription(self, tcfg=None):
-        raise NotImplementedError(
-            "the direct-transcription baseline (solver/transcription.py) "
-            "comes with a later slice of the port (ROADMAP Queue 1 item 13)")
+        """Solve the same problem with the direct-transcription baseline
+        (the reference's SQP comparison path) and return the Solve()
+        contract (x (n, N), u (m, N-1), solve_time, cost)."""
+        from drake_ddp_tpu_torch.solver.transcription import (
+            TranscriptionConfig,
+            solve_transcription,
+        )
+
+        tcfg = tcfg or TranscriptionConfig(num_steps=self.N)
+        st = time.time()
+        sol = solve_transcription(self.system, tcfg, self._problem())
+        x, u = sol.x.cpu().numpy(), sol.u.cpu().numpy()
+        cost = float(sol.cost)
+        solve_time = time.time() - st
+        if self.verbose:
+            print(f"transcription defect: {float(sol.defect):.2e}, "
+                  f"objective: {float(sol.objective):.4f}")
+        return x.T, u.T, solve_time, cost
 
     # -- persistence --------------------------------------------------------
 
     def SaveSolution(self, fname: str):
-        """Save (t, x_bar, u_bar, K) to .npz; the feedback law
+        """Save (t, x_bar, u_bar, K) to .npz (:func:`~drake_ddp_tpu_torch.
+        io.solution.save_solution`); the feedback law
         u = u_bar - K (x - x_bar) stabilizes the trajectory."""
+        from drake_ddp_tpu_torch.io.solution import save_solution
+
         if self._solution is None:
             raise RuntimeError("call Solve() before SaveSolution()")
-        dt = self.system.dt
-        T = (self.N - 1) * dt
-        t = np.arange(0.0, T, dt)
         sol = self._solution
-        np.savez(
-            fname,
-            t=t,
-            x_bar=sol.x.T[:, :-1],        # (n, N-1): last step dropped
-            u_bar=sol.u.T,                # (m, N-1)
-            K=np.moveaxis(sol.K, 0, -1),  # (m, n, N-1)
-        )
+        save_solution(fname, self.system.dt, sol.x.T, sol.u.T,
+                      np.moveaxis(sol.K, 0, -1))

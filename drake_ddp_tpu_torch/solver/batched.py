@@ -16,6 +16,8 @@ scenario batch as an explicit leading axis B.
   lane Jacobian (``"lane"``; for a multibody system the plain PyTorch
   structured IFT of :mod:`multibody.lanejac`), root-seeded or
   cold-Newton as ``root_seed`` says.
+- The Riccati phase is the sequential sweep, or with
+  ``cfg.parallel_backward`` the associative scan of :mod:`solver.parscan`.
 - Both loops keep what ``jax.vmap`` makes of a batched ``while_loop``:
   iterate while ANY lane is active, freeze the carry of inactive lanes.
   Each round costs one host synchronisation to read that flag;
@@ -48,6 +50,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     _cost_steps,
     _LoopState,
 )
+from drake_ddp_tpu_torch.solver.parscan import parallel_backward_pass
 from drake_ddp_tpu_torch.utils.timing import phase
 
 ROLLOUT_KERNELS = ("fused", "megastep", "plain")
@@ -238,6 +241,8 @@ def solve_ilqr_batched(
 
     derivs_fn = partial(kp.compute_derivatives_batched, jac_T, cfg.derivs,
                         root=root)
+    backward = (parallel_backward_pass if cfg.parallel_backward
+                else _backward_pass)
     adaptive = cfg.reg > 0.0
     lane_ix = torch.arange(B, device=dev)
 
@@ -282,8 +287,8 @@ def solve_ilqr_batched(
             fu = selb(cache_ok, state.fu, fu_new)
             percent = torch.where(failed, torch.zeros_like(pct), pct)
         with phase(timer, "riccati"):
-            kappa, K, dV = _backward_pass(cfg, prob, x_use, u_use, fx, fu,
-                                          reg_new)
+            kappa, K, dV = backward(cfg, prob, x_use, u_use, fx, fu,
+                                    reg_new)
 
         # inactive lanes (iteration == max_iters) write a discarded slot
         it = state.iteration.long().clamp(max=cfg.max_iters - 1)

@@ -43,6 +43,9 @@ class ILQRConfig(NamedTuple):
         derivs: keypoint derivative-interpolation config.
         ls_parallel: linesearch candidates {1, beta, beta^2, ...} rolled
             out together, folded into the rollout's lane axis.
+        parallel_backward: run the Riccati phase as the associative scan
+            of :mod:`~drake_ddp_tpu_torch.solver.parscan` (O(log N)
+            levels of batched products) instead of the sequential sweep.
         ls_expected_floor: skip candidates whose predicted decrease
             eps (1 - eps/2) sum(dV_coeff) is below this floor, and treat a
             lane that exhausts the schedule this way as converged.
@@ -60,6 +63,7 @@ class ILQRConfig(NamedTuple):
     reg_max: float = 1e3
     derivs: kp.DerivsInterpolation = kp.BASELINE
     ls_parallel: int = 8
+    parallel_backward: bool = False
     ls_expected_floor: float = 0.0
 
 
@@ -184,31 +188,46 @@ def _backward_pass(cfg: ILQRConfig, prob: ILQRProblem, x_bar, u_bar, fx, fu,
             torch.stack(dVs, dim=1))
 
 
+def scenario_routes(system, deriv_kernel: Optional[str] = None) -> dict:
+    """The kernels of a per-scenario solve, by the system: a multibody
+    system rolls out on megaroll (``rollout_kernel="fused"``) and
+    differentiates with the cold-Newton megajac (``"megajac"``, the IFT
+    at the step's own Newton root, as ``jax.jacfwd`` of the JAX
+    per-scenario step gives); a system without kernel data, such as an
+    analytic one, runs its own lane step and lane Jacobian (``"plain"``,
+    ``"lane"``).  ``deriv_kernel`` names the Jacobian route instead.
+    Keyword arguments of :func:`~drake_ddp_tpu_torch.solver.batched.
+    solve_ilqr_batched`."""
+    multibody = is_multibody(system)
+    return dict(rollout_kernel="fused" if multibody else "plain",
+                deriv_kernel=deriv_kernel or ("megajac" if multibody
+                                              else "lane"),
+                root_seed=False)
+
+
+def unbatch(sol, i=0):
+    """Batch element ``i`` of a batched record (a NamedTuple of tensors
+    with a leading batch axis, whose fields may hold a nested NamedTuple,
+    such as ILQRStats, or None)."""
+    return type(sol)(*(
+        None if f is None else unbatch(f, i) if isinstance(f, tuple)
+        else f[i] for f in sol))
+
+
 def solve_ilqr(system, cfg: ILQRConfig, prob: ILQRProblem,
                deriv_kernel: Optional[str] = None,
                timer=None) -> ILQRSolution:
     """The iLQR solve of one scenario: ``prob`` without a batch axis
     (x0 (n,), Q (n, n), u_init (N-1, m), ...); the solution likewise.
 
-    The batched loop at B = 1.  The kernels follow the system: a
-    multibody system rolls out on megaroll (``rollout_kernel="fused"``)
-    and differentiates with the cold-Newton megajac (``"megajac"``, the
-    IFT at the step's own Newton root, as ``jax.jacfwd`` of the JAX
-    per-scenario step gives); a system without kernel data, such as an
-    analytic one, runs its own lane step and lane Jacobian (``"plain"``,
-    ``"lane"``).  ``deriv_kernel`` names the Jacobian route instead.  On
-    CPU tensors the kernel wrappers run their plain versions.  ``timer``
-    as in :func:`~drake_ddp_tpu_torch.solver.batched.
+    The batched loop at B = 1 on the kernels :func:`scenario_routes`
+    picks by the system (``deriv_kernel`` names another Jacobian route).
+    On CPU tensors the kernel wrappers run their plain versions.
+    ``timer`` as in :func:`~drake_ddp_tpu_torch.solver.batched.
     solve_ilqr_batched`."""
     from drake_ddp_tpu_torch.solver.batched import solve_ilqr_batched
 
-    multibody = is_multibody(system)
-    sol = solve_ilqr_batched(
+    return unbatch(solve_ilqr_batched(
         system, cfg,
         ILQRProblem(*(None if a is None else a[None] for a in prob)),
-        rollout_kernel="fused" if multibody else "plain",
-        deriv_kernel=deriv_kernel or ("megajac" if multibody else "lane"),
-        root_seed=False, timer=timer)
-    return ILQRSolution(*(
-        ILQRStats(*(a[0] for a in f)) if isinstance(f, ILQRStats) else f[0]
-        for f in sol))
+        timer=timer, **scenario_routes(system, deriv_kernel)))

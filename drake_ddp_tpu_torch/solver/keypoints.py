@@ -106,7 +106,7 @@ def compute_derivatives_batched(
     if cfg.keypoint_method != SET_INTERVAL:
         raise NotImplementedError(
             f"{cfg.keypoint_method} keypoints come with a later slice of "
-            "the port (ROADMAP Queue 1); use setInterval")
+            "the port (ROADMAP Queue 1, item 10); use setInterval")
     mask_np = set_interval_mask(N, cfg.minN)
     idx = np.nonzero(mask_np)[0]
     if idx[0] != 0:

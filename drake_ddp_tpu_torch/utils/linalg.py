@@ -1,7 +1,8 @@
-"""Small batched SPD solves.
+"""Small batched SPD solves and inverses.
 
 Port of ``solve_spd`` from ``drake_ddp_tpu/utils/linalg.py``, which backs
-the Riccati gain solve.  The JAX package writes the Cholesky out by hand
+the Riccati gain solve, and of the inverse that the associative-scan
+Riccati takes of ``I + C J`` (``_gauss_jordan`` there).  The JAX package writes the Cholesky out by hand
 to keep TPU programs small; here it is one batched ``torch.linalg``
 factorization (unpivoted, so the factor is the same unique Cholesky
 factor) and two batched triangular solves.  ``cholesky_ex`` reports failure per
@@ -28,3 +29,17 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, rhs, upper=False)
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
     return x[..., 0] if vec else x
+
+
+def inv_i_plus_psd(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of A = I + C J for PSD C and J (..., n, n), as the
+    associative-scan Riccati combine forms it: the eigenvalues of C J are
+    those of the PSD C^1/2 J C^1/2, so A's are >= 1 and A is never
+    singular in exact arithmetic.  The JAX package eliminates without
+    pivoting (Gauss-Jordan); here it is one batched LU with partial
+    pivoting, which is as safe and one launch for the whole batch.  A
+    matrix the factorization finds singular (rounding, or NaN inputs)
+    gets a NaN inverse, as in :func:`solve_spd`."""
+    inv, info = torch.linalg.inv_ex(A)
+    return torch.where((info == 0)[..., None, None], inv,
+                       torch.full_like(inv, float("nan")))

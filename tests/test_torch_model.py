@@ -222,16 +222,23 @@ MANIPULATION = ("utils/spatial.py", "multibody/algorithms.py",
                 "models/_data_gripper_articulated.py", "io/urdf.py",
                 "ops/_table.py", "examples/_arm.py", "examples/panda_fr3.py",
                 "examples/kinova_gen3.py")
+# the classic-task slice's modules
+CLASSIC = ("solver/parscan.py", "solver/multistart.py",
+           "solver/transcription.py", "utils/linalg.py", "mpc/driver.py",
+           "mpc/__init__.py", "io/__init__.py", "io/solution.py",
+           "io/checkpoint.py", "examples/acrobot.py",
+           "examples/cart_pole_with_wall.py")
 
 
 @pytest.mark.parametrize("where", ["package", "chip_smoke", "per_scenario",
-                                   "manipulation"])
+                                   "manipulation", "classic"])
 def test_port_imports_no_jax(where):
     if where == "package":
         files = sorted((REPO / "drake_ddp_tpu_torch").rglob("*.py"))
-    elif where in ("per_scenario", "manipulation"):
-        files = [REPO / "drake_ddp_tpu_torch" / f for f in (
-            PER_SCENARIO if where == "per_scenario" else MANIPULATION)]
+    elif where in ("per_scenario", "manipulation", "classic"):
+        files = [REPO / "drake_ddp_tpu_torch" / f for f in {
+            "per_scenario": PER_SCENARIO, "manipulation": MANIPULATION,
+            "classic": CLASSIC}[where]]
         assert all(f.is_file() for f in files)
     else:
         files = [REPO / "chip_smoke.py"]

@@ -295,26 +295,56 @@ def test_save_solution_matches_jax_layout(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["parallel_backward", "sqp",
-                                  "wrong_device", "direct_transcription"])
+                                  "wrong_device", "direct_transcription",
+                                  "adaptive_jerk", "mesh_collision"])
 def test_unported_options_and_wrong_devices_raise(what):
+    """Options without a port raise and name their ROADMAP item; the
+    routes that the classic-task slice ported (the associative-scan
+    Riccati, ``method="sqp"``, ``SolveDirectTranscription``) run on the
+    CPU; a solver on another device than its multibody system, or on a
+    missing card, raises."""
     from drake_ddp_tpu_torch import IterativeLinearQuadraticRegulator
     from drake_ddp_tpu_torch.dynamics import pendulum_system
-    from drake_ddp_tpu_torch.examples import mini_cheetah, pendulum
+    from drake_ddp_tpu_torch.examples import (cart_pole_with_wall,
+                                              mini_cheetah, pendulum)
+
+    def pendulum_solver(N, **kw):
+        ilqr = IterativeLinearQuadraticRegulator(
+            pendulum_system(dt=1e-2), N, verbose=False, device="cpu", **kw)
+        ilqr.SetTargetState(np.array([np.pi, 0.0]))
+        ilqr.SetTerminalCost(100 * np.eye(2))
+        return ilqr
 
     if what == "parallel_backward":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            IterativeLinearQuadraticRegulator(
-                pendulum_system(dt=1e-2), 10, parallel_backward=True,
-                device="cpu")
+        costs = [pendulum_solver(30, max_iters=10,
+                                 parallel_backward=pb).Solve()[3]
+                 for pb in (True, False)]
+        assert costs[0] == pytest.approx(costs[1], rel=1e-4)
     elif what == "sqp":
-        with pytest.raises(NotImplementedError, match="item 13"):
-            pendulum.run(pendulum.Config(method="sqp", verbose=False),
-                         device="cpu")
+        x, u, _, cost = pendulum.run(pendulum.Config(T=0.2, method="sqp",
+                                                     verbose=False),
+                                     device="cpu")
+        assert x.shape == (2, 20) and u.shape == (1, 19)
+        assert np.isfinite(x).all() and np.isfinite(cost)
     elif what == "direct_transcription":
-        ilqr = IterativeLinearQuadraticRegulator(pendulum_system(dt=1e-2),
-                                                 10, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ilqr.SolveDirectTranscription()
+        from drake_ddp_tpu_torch.solver.transcription import (
+            TranscriptionConfig)
+        x, u, _, cost = pendulum_solver(10).SolveDirectTranscription(
+            TranscriptionConfig(num_steps=10, num_rounds=2, inner_steps=20))
+        assert x.shape == (2, 10) and np.isfinite(cost)
+    elif what == "adaptive_jerk":
+        cfg = cart_pole_with_wall.Config(use_derivative_interpolation=True,
+                                         keypoint_method="adaptiveJerk")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            cart_pole_with_wall.build_solver(cfg, device="cpu")
+    elif what == "mesh_collision":
+        from drake_ddp_tpu_torch.contact.geometry import (ContactProps,
+                                                          GeometrySet)
+        from drake_ddp_tpu_torch.io.urdf import UrdfCollision, _add_collision
+        mesh = UrdfCollision("mesh", np.zeros(3), np.eye(3), np.ones(3),
+                             "link.obj", ContactProps())
+        with pytest.raises(NotImplementedError, match="item 11"):
+            _add_collision(GeometrySet(), 0, mesh)
     else:
         # a multibody system on the CPU, a solver asked for another device
         system, _ = mini_cheetah.build_system(mini_cheetah.Config(),
