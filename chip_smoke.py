@@ -43,7 +43,18 @@ run's last megaroll and megajac calls (64 and 792 lanes); the acrobot
 against the JAX golden, its MPC chain (``mpc_solve``, 51 solves) against
 JAX's own run of it, the pendulum, cart-pole and acrobot with
 ``method="sqp"`` (direct transcription) against JAX's costs, and the two
-Riccati routes alone over batch, horizon and state size.
+Riccati routes alone over batch, horizon and state size.  Then the
+keypoint and model-file slice: adaptiveJerk and iterativeError (with and
+without a binding keypoint budget) on seeded cheetah trajectories,
+root-seeded at B 256 and cold at B 1, every mask held to a host
+recomputation, the lazy bisection to its replay on a dense megajac stack
+bit for bit, every megajac call to the plain float64 Jacobian; the
+cheetah's and the Kinova's ``run()`` with dynamic keypoints beside
+setInterval-8 (launches per derivative call or bisection level, lanes
+per mask, the Kinova's task); a cut of the flagship with adaptiveJerk
+beside setInterval-8; the cart-pole from ``cart_pole.sdf`` with no
+contact model on megastep, megaroll and the cold megajac and its
+swing-up, and an OBJ-covered arm from URDF text on megastep.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without that line.  Needs a CUDA card; exits 2
@@ -489,7 +500,7 @@ def jac_errors(kd, args64, got, root, plain32):
             lane_max(K - J32), bool(torch.isfinite(K).all()))
 
 
-def jac_check(kd, x64, u64, got, root, max_flips=None):
+def jac_check(kd, x64, u64, got, root, max_flips=None, xn64=None):
     """Holds a kernel Jacobian ``got`` = (fx, fu) of the float32 inputs
     to the plain float64 Jacobian of the float64 inputs, lane by lane:
     max |kernel - plain f64| <= 3 max |plain f32 - plain f64| + 1e-5 max
@@ -502,10 +513,12 @@ def jac_check(kd, x64, u64, got, root, max_flips=None):
     So is a lane whose float64 root moves by more than CROSSING when its
     inputs are rounded to float32: the kernel computes in float64 from
     those inputs.  Such lanes are left out, counted, and at most 2% of
-    the lanes (``max_flips``, if given, instead)."""
+    the lanes (``max_flips``, if given, instead).  ``xn64``: the x_next
+    that a root-seeded call was given (a trajectory's own next state)."""
     import torch
     nq = kd.model.nq
-    xn64 = kd.step(x64, u64)
+    if xn64 is None or not root:
+        xn64 = kd.step(x64, u64)
     args64 = (x64, u64) + ((xn64,) if root else ())
     args32 = tuple(a.float().contiguous() for a in args64)
     e_k, e_p, scale, e_kp, finite = jac_errors(
@@ -660,8 +673,9 @@ def phase_megajac_team(results, logs):
 
 
 def mpc_setup(mc, system, N, B, contact_iters, max_iters, minN, device,
-              dtype, gen):
-    """bench.py's flagship problem, solver and chain-health settings."""
+              dtype, gen, derivs=None):
+    """bench.py's flagship problem, solver and chain-health settings
+    (``derivs``: another interpolation than setInterval-``minN``)."""
     import torch
     from drake_ddp_tpu_torch.mpc.driver import MPCConfig
     from drake_ddp_tpu_torch.solver import keypoints as kp
@@ -681,7 +695,7 @@ def mpc_setup(mc, system, N, B, contact_iters, max_iters, minN, device,
         K_init=torch.zeros((B, N - 1, 12, 37), dtype=dtype, device=device),
         x_ref_init=x0b[:, None].repeat(1, N, 1),
         frozen=torch.zeros(B, dtype=torch.bool, device=device))
-    derivs = kp.DerivsInterpolation("setInterval", minN=minN)
+    derivs = derivs or kp.DerivsInterpolation("setInterval", minN=minN)
     scfg = ILQRConfig(num_steps=N, delta=cfg.delta, beta=cfg.beta,
                       max_iters=max_iters, derivs=derivs, ls_parallel=2,
                       eps_min=1e-3, ls_expected_floor=cfg.delta,
@@ -734,10 +748,12 @@ def phase_small_chain():
 
 
 def run_flagship(rollout_kernel, num_resolves, seed, timer=None,
-                 deriv_kernel="megajac", root_jac=lambda jac: jac):
+                 deriv_kernel="megajac", root_jac=lambda jac: jac,
+                 derivs=None):
     """The flagship chain, with the system's root-seeded lane Jacobian
     replaced by ``root_jac(it)``; a None there makes the solver take the
-    cold-Newton one."""
+    cold-Newton one.  ``derivs``: another interpolation than the
+    flagship's setInterval-8."""
     import dataclasses
     import torch
     from drake_ddp_tpu_torch.mpc.driver import mpc_solve_batched
@@ -747,7 +763,7 @@ def run_flagship(rollout_kernel, num_resolves, seed, timer=None,
         system, lane_jac_root_fn=root_jac(system.lane_jac_root_fn))
     gen = torch.Generator(device=dev).manual_seed(seed)
     prob, scfg, mpcc, shift, rescue = mpc_setup(
-        mc, system, 50, BATCH, 8, 8, 8, dev, torch.float32, gen)
+        mc, system, 50, BATCH, 8, 8, 8, dev, torch.float32, gen, derivs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = mpc_solve_batched(system, scfg, prob, mpcc(num_resolves), shift,
@@ -1085,22 +1101,32 @@ def phase_scenario_analytic():
 SCENARIO_NOISE_REL = 1e-6   # the noise control's relative Jacobian noise
 
 
-def run_example(ex, deriv_kernel=None, wrap=None, record=False):
-    """The example module ``ex``'s run() on the card at its
-    Config(verbose=False), with the counts set to 0 just before: a dict
-    of its states, cost, solutions, phase timer, wall seconds, launch
+def run_example(ex, deriv_kernel=None, wrap=None, record=False, cfg=None):
+    """The example module ``ex``'s run() on the card at ``cfg`` (default
+    its Config(verbose=False)), with the counts set to 0 just before: a
+    dict of its states, cost, solutions, phase timer, wall seconds, launch
     counts and host syncs.  ``wrap`` (system -> system) replaces the
     system that the example builds, for this run only; with ``record``
     every megajac call's inputs and outputs are kept (``calls``, a copy on
-    the card, after the call)."""
+    the card, after the call), and each derivative call's first megajac
+    call and keypoint count (``rounds``: (index into calls, keypoints))."""
     import torch
     from drake_ddp_tpu_torch.ops.megajac import megajac
     from drake_ddp_tpu_torch.ops.megaroll import megaroll
     from drake_ddp_tpu_torch.ops.megastep import megastep
     from drake_ddp_tpu_torch.solver import batched
+    from drake_ddp_tpu_torch.solver import keypoints as kp
     from drake_ddp_tpu_torch.utils.timing import PhaseTimer
-    timer, sols, calls = PhaseTimer(), [], []
+    timer, sols, calls, rounds = PhaseTimer(), [], [], []
     build, make = ex.build_system, batched.megajac_for_system
+    derivs = kp.compute_derivatives_batched
+
+    def counting(jac_T, dcfg, x, u, root=False):
+        first = len(calls)
+        fx, fu, pct = derivs(jac_T, dcfg, x, u, root=root)
+        rounds.append((first, int(round(float(pct[0]) * (x.shape[1] - 1)
+                                        / 100.0))))
+        return fx, fu, pct
 
     def recording(system, root_seed):
         jac = make(system, root_seed)
@@ -1116,11 +1142,13 @@ def run_example(ex, deriv_kernel=None, wrap=None, record=False):
             lambda sm: (wrap(sm[0]), sm[1]))(build(cfg, device=device))
     if record:
         batched.megajac_for_system = recording
+        kp.compute_derivatives_batched = counting
     try:
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states, _, _, cost = ex.run(ex.Config(verbose=False), device="cuda",
+        states, _, _, cost = ex.run(cfg or ex.Config(verbose=False),
+                                    device="cuda",
                                     deriv_kernel=deriv_kernel, timer=timer,
                                     on_solve=sols.append)
         torch.cuda.synchronize()
@@ -1130,8 +1158,9 @@ def run_example(ex, deriv_kernel=None, wrap=None, record=False):
                       syncs=batched.any_lane.syncs)
     finally:
         ex.build_system, batched.megajac_for_system = build, make
+        kp.compute_derivatives_batched = derivs
     return dict(states=states, cost=cost, sols=sols, timer=timer,
-                seconds=secs, calls=calls, **counts)
+                seconds=secs, calls=calls, rounds=rounds, **counts)
 
 
 def run_scenario(deriv_kernel=None, wrap=None):
@@ -2059,6 +2088,682 @@ def phase_riccati_routes():
         fail("riccati_routes", "the two routes disagree")
 
 
+# ---------------------------------------------------------------------------
+# Dynamic keypoints (adaptiveJerk, iterativeError) and model files
+# ---------------------------------------------------------------------------
+
+# the JAX mini-cheetah example's interpolation thresholds
+KP_CHEETAH = dict(minN=2, maxN=20, jerk_threshold=0.3,
+                  iterative_error_threshold=10.0)
+KP_BUDGET = 12         # max_keypoints that binds iterativeError's level caps
+KP_BATCH_LANES = 256   # the root-seeded case's scenarios (the flagship's B)
+CHECK_CHUNK = 2048     # lanes per jac_check call of a recorded stack
+
+
+def kp_configs():
+    """(label, DerivsInterpolation) of the keypoint phases."""
+    from drake_ddp_tpu_torch.solver import keypoints as kp
+    aj = kp.DerivsInterpolation("adaptiveJerk", **KP_CHEETAH)
+    ie = kp.DerivsInterpolation("iterativeError", **KP_CHEETAH)
+    return (("adaptiveJerk", aj), ("iterativeError", ie),
+            ("iterativeError_budget", ie._replace(max_keypoints=KP_BUDGET)))
+
+
+def kp_trajectories(mc, kd, B, N, gen, dev):
+    """B seeded cheetah trajectories (B, N, n) and tapes (B, N-1, m),
+    float32: seeded_states' standing states and torques, new torque noise
+    each step, rolled out by megastep."""
+    import torch
+    from drake_ddp_tpu_torch.ops.megastep import megastep
+    x64, _ = seeded_states(mc, B, gen, dev, torch.float64)
+    U = torch.as_tensor(mc.U_STAND, dtype=torch.float32, device=dev)
+    u = U[None, :, None] + 0.5 * torch.randn((N - 1, kd.m, B), generator=gen,
+                                             device=dev)
+    xs = [x64.float()]
+    for t in range(N - 1):
+        xs.append(megastep(kd, xs[-1], u[t].contiguous()))
+    return (torch.stack(xs).permute(2, 0, 1).contiguous(),
+            u.permute(2, 0, 1).contiguous())
+
+
+def recorded_megajac(kd, root, calls):
+    """megajac as a lane Jacobian that keeps each call's inputs and
+    outputs (a copy, after the call)."""
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+
+    def f(*lanes):
+        out = megajac(kd, lanes[0], lanes[1], lanes[2] if root else None)
+        calls.append(tuple(t.clone() for t in lanes + tuple(out)))
+        return out
+    return f
+
+
+def jac_check_calls(kd, calls, root, per_scenario=False):
+    """jac_check over the lanes of every recorded megajac call, CHECK_CHUNK
+    lanes at a time; the flips at most 2% of all lanes, or with
+    ``per_scenario`` (cold calls of a single scenario, where the plain
+    float32 root is another one on up to 1 lane in 5) at most half, each
+    within FLIP_LANE_REL of its lane's scale."""
+    import torch
+    cat = lambda i: torch.cat([c[i] for c in calls], dim=-1)
+    x, u, fx, fu = cat(0), cat(1), cat(-2), cat(-1)
+    xn = cat(2) if root else None
+    L, ok, reps = x.shape[-1], True, []
+    for a in range(0, L, CHECK_CHUNK):
+        sl = slice(a, a + CHECK_CHUNK)
+        ok_c, rep = jac_check(
+            kd, x[:, sl].double(), u[:, sl].double(),
+            (fx[..., sl], fu[..., sl]), root, max_flips=CHECK_CHUNK,
+            xn64=xn[:, sl].double() if root else None)
+        ok, reps = ok and ok_c, reps + [rep]
+    flips = sum(r["flips"] for r in reps)
+    worst = lambda k: max(r[k] for r in reps)
+    flip_rel = worst("err_kernel_vs_f64_rel_flip_lanes_max")
+    ok = (ok and flips <= (0.5 if per_scenario else 0.02) * L
+          and (not per_scenario or flip_rel <= FLIP_LANE_REL))
+    return bool(ok), {
+        "lanes": L, "calls": len(calls), "flips": flips,
+        "worst_lane_margin": worst("worst_lane_margin"),
+        "err_kernel_vs_f64_rel_max": worst("err_kernel_vs_f64_rel_max"),
+        "err_kernel_vs_f64_rel_flip_lanes_max": flip_rel,
+        "max_abs_err_vs_plain_f32": worst("max_abs_err_vs_plain_f32")}
+
+
+def host_adaptive_jerk(cfg, x):
+    """adaptiveJerk masks (B, N-1) recomputed on the host from the
+    trajectories x (B, N, n): the velocity trace's second difference in
+    float32 numpy, the counter scan in plain Python, one scenario at a
+    time (the JAX package's rules: keypoint 0, a hit at minN on jerk or at
+    maxN regardless, the last keypoint moved to N-2)."""
+    import numpy as np
+    xh = x.cpu().numpy()
+    B, N, n = xh.shape
+    v = xh[:, :, n - n // 2:]
+    jerk = v[:, 2:N - 1] - 2.0 * v[:, 1:N - 2] + v[:, 0:N - 3]
+    exceeds = (jerk > np.float32(cfg.jerk_threshold)).any(axis=-1)
+    masks = np.zeros((B, N - 1), bool)
+    for b in range(B):
+        counter, keys = 0, {0}
+        for t in range(N - 3):
+            counter += 1
+            if counter >= cfg.minN and exceeds[b, t]:
+                keys.add(t)
+                counter = 0
+            if counter >= cfg.maxN:
+                keys.add(t)
+                counter = 0
+        if max(keys) != N - 2:
+            keys.discard(max(keys))
+            keys.add(N - 2)
+        masks[b, sorted(keys)] = True
+    return masks
+
+
+def host_bisection(cfg, fx_dense, N):
+    """iterativeError visited sets (B, N-1) replayed scenario by scenario
+    and level by level on the dense Jacobian stacks fx_dense (B, N-1, n,
+    n): a wanted segment (s, e) marks s, its mid and e, and its halves
+    are wanted when the midpoint estimate's error exceeds the threshold;
+    with ``max_keypoints`` a level checks only the first ``cap`` wanted
+    segments in the tree's order (the JAX package's level caps)."""
+    import numpy as np
+    import torch
+    from drake_ddp_tpu_torch.solver import keypoints as kp
+    B, n = fx_dense.shape[0], fx_dense.shape[-1]
+    levels = kp._dyadic_tree(N, cfg.minN)
+    caps = (kp._level_caps(levels, max(3, cfg.max_keypoints))
+            if cfg.max_keypoints is not None else None)
+    visited = np.zeros((B, N - 1), bool)
+    for b in range(B):
+        active = np.ones(1, bool)
+        for li, (st, en, mi, wide) in enumerate(levels):
+            want = active & wide
+            if caps is not None:
+                if li > 0 and caps[li] == 0:
+                    break
+                want &= np.cumsum(want) <= caps[li]
+            j = np.nonzero(want)[0]
+            if len(j) == 0:
+                break
+            for ix in (st, mi, en):
+                visited[b, ix[j]] = True
+            g = lambda ix: fx_dense[b, torch.as_tensor(
+                ix[j].astype(np.int64), device=fx_dense.device)]
+            err = torch.sum((0.5 * (g(st) + g(en)) - g(mi)) ** 2,
+                            dim=(-2, -1)) / (2 * n)
+            bad = np.zeros(len(st), bool)
+            bad[j] = (err > cfg.iterative_error_threshold).cpu().numpy()
+            active = np.concatenate([bad, bad])
+    return visited
+
+
+def lanes_of(calls, x, root):
+    """The (scenario, step) pairs of every recorded call's lanes, matched
+    by their exact states in the trajectories x (B, N, n), per call; a
+    root-seeded lane's x_next must be its trajectory's next state."""
+    import numpy as np
+    xh = x.cpu().numpy()
+    B, N, _ = xh.shape
+    where = {xh[b, t].tobytes(): (b, t) for b in range(B)
+             for t in range(N - 1)}
+    out = []
+    for c in calls:
+        lanes = c[0].T.cpu().numpy()
+        bt = np.array([where.get(l.tobytes(), (-1, -1)) for l in lanes])
+        if root and (bt >= 0).all():
+            nxt = c[2].T.cpu().numpy()
+            if not np.array_equal(nxt, xh[bt[:, 0], bt[:, 1] + 1]):
+                bt[:] = -1
+        out.append(bt)
+    return out
+
+
+def phase_keypoints_kernels(results):
+    """The dynamic keypoint methods on seeded cheetah trajectories (N 50,
+    contact_iters 8), root-seeded at B 256 and cold at B 1, through the
+    port's ``compute_derivatives_batched`` on megajac: adaptiveJerk (the
+    JAX example's thresholds) and iterativeError with and without a
+    binding ``max_keypoints``.
+
+    Fails unless: each adaptiveJerk mask equals a host recomputation from
+    the same trajectories, and its one megajac call took exactly those
+    (scenario, step) lanes; the iterativeError visited sets equal the
+    bisection replayed on a dense megajac stack of the same trajectories
+    (with the level caps where the budget is set; without it also the
+    port's own replay ``iterative_error_mask``), and its Jacobians equal
+    that stack's interpolation bit for bit; the percentages equal the
+    masks' counts; every megajac call is within jac_check's pin against
+    the plain float64 Jacobian.  Prints each call's lanes, ms, bound and
+    the blocks of its primal and tangent kernels (of 132 SMs)."""
+    import numpy as np
+    import torch
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import launch_config, megajac
+    from drake_ddp_tpu_torch.solver import keypoints as kp
+    dev = torch.device("cuda")
+    mc, system, _ = cheetah(dev)
+    kd = kernel_data_for_system(system)
+    n, m, N = kd.n, kd.m, 50
+    T = N - 1
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for B, root in ((KP_BATCH_LANES, True), (1, False)):
+        name = "megajac" if root else "megajac_cold"
+        x, u = kp_trajectories(mc, kd, B, N, gen, dev)
+        lane = lambda a: a.reshape(B * T, a.shape[-1]).T.contiguous()
+        dense = megajac(kd, lane(x[:, :-1]), lane(u),
+                        lane(x[:, 1:]) if root else None)
+        fx_d = dense[0].reshape(n, n, B, T).permute(2, 3, 0, 1)
+        fu_d = dense[1].reshape(n, m, B, T).permute(2, 3, 0, 1)
+        for label, cfg in kp_configs():
+            calls = []
+            fx, fu, pct = kp.compute_derivatives_batched(
+                recorded_megajac(kd, root, calls), cfg, x, u, root=root)
+            torch.cuda.synchronize()
+            pairs = lanes_of(calls, x, root)
+            got = np.zeros((B, T), bool)
+            for bt in pairs:
+                if (bt >= 0).all():
+                    got[bt[:, 0], bt[:, 1]] = True
+            matched = all((bt >= 0).all() for bt in pairs)
+            if label == "adaptiveJerk":
+                want = host_adaptive_jerk(cfg, x)
+                order = np.stack(np.nonzero(want), axis=1)
+                exact = (len(calls) == 1 and matched
+                         and np.array_equal(pairs[0], order))
+                replay = {}
+            else:
+                want = host_bisection(cfg, fx_d, N)
+                replay = {"port_replay_equal": True}
+                if cfg.max_keypoints is None:
+                    own = torch.stack([kp.iterative_error_mask(cfg, fx_d[b], N)
+                                       for b in range(B)]).cpu().numpy()
+                    replay["port_replay_equal"] = bool(np.array_equal(own,
+                                                                      want))
+                mask_t = torch.as_tensor(want, device=dev)
+                replay["fx_fu_bit_equal"] = bool(
+                    torch.equal(fx, kp.interpolate_stack(mask_t, fx_d))
+                    and torch.equal(fu, kp.interpolate_stack(mask_t, fu_d)))
+                exact = matched and sum(len(bt) for bt in pairs) == want.sum()
+            counts_ok = bool(torch.equal(
+                pct, 100.0 * torch.as_tensor(want.sum(1), device=dev,
+                                             dtype=pct.dtype) / T))
+            ok_j, jrep = jac_check_calls(kd, calls, root,
+                                         per_scenario=B == 1)
+            timing = []
+            for c in calls:
+                L = c[0].shape[-1]
+                args = c[:3] if root else c[:2]
+                n_bytes = ((n + m + (n if root else 0)) + n * (n + m)) * L * 4
+                b_ms, b_by = bound_ms(n_bytes, jac_ops(kd, root) * L)
+                timing.append({
+                    "lanes": L, "ms": cuda_ms(lambda: megajac(
+                        kd, args[0], args[1], args[2] if root else None), 3),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "primal_blocks": launch_config(kd, L)["blocks"],
+                    "tangent_blocks": -(-L * (n + m) // 128)})
+            ok = bool(np.array_equal(got, want) and exact and counts_ok
+                      and all(replay.values()) and ok_j
+                      and torch.isfinite(fx).all()
+                      and torch.isfinite(fu).all())
+            emit({"phase": "keypoints_kernels", "ok": ok, "method": label,
+                  "root_seeded": root, "batch": B, "horizon": N,
+                  "config": cfg._asdict(), "masks_equal_host": bool(
+                      np.array_equal(got, want)), "lanes_exact": bool(exact),
+                  "percent_equal_counts": counts_ok, **replay,
+                  "percent_mean": pct.mean().item(),
+                  "keypoints_total": int(want.sum()), "jac_check": jrep,
+                  "launches": len(calls), "calls": timing})
+            if not ok:
+                fail("keypoints_kernels", f"{label} at B {B}: a mask, a "
+                     "lane set, a Jacobian or a megajac call is off")
+            results[name].setdefault("keypoints", {})[label] = {
+                "batch": B, "lanes_per_launch": [t["lanes"] for t in timing],
+                "ms_per_launch": [t["ms"] for t in timing],
+                "bound_ms": [t["bound_ms"] for t in timing]}
+
+
+def keypoint_rounds(run):
+    """Per derivative call of a recorded per-scenario run: its megajac
+    calls' lane counts and the keypoint count of its percentage."""
+    calls, rounds = run["calls"], run["rounds"]
+    ends = [r[0] for r in rounds[1:]] + [len(calls)]
+    return [([c[0].shape[-1] for c in calls[a:e]], k)
+            for (a, k), e in zip(rounds, ends)]
+
+
+def phase_scenario_keypoints():
+    """The per-scenario examples with dynamic keypoints on the card: the
+    mini cheetah's run() with adaptiveJerk and with iterativeError at the
+    JAX example's thresholds, the Kinova's with adaptiveJerk at its
+    Config() (the JAX defaults), each beside the same run with
+    setInterval-8.
+
+    Fails unless every run ends finite and not diverged; megaroll
+    launches == linesearch chunks; a dynamic run launches the cold megajac
+    once per derivative call (adaptiveJerk) or once per bisection level
+    (iterativeError: each call's first launch the root's 3 lanes, at most
+    the tree's depth a call), each call's lanes summing to its keypoint
+    count; every megajac call within jac_check's pin as the per-scenario
+    phases hold them; the Kinova's adaptiveJerk run meets the goldens'
+    ball check, as its dense run does (scenario_kinova; the
+    setInterval-8 run's task checks are printed)."""
+    import numpy as np
+    from drake_ddp_tpu_torch.examples import kinova_gen3, mini_cheetah
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.solver import keypoints as kp
+    depth = kp._dyadic_depth(50, KP_CHEETAH["minN"])
+    cases = [("cheetah", mini_cheetah, m) for m in
+             ("adaptiveJerk", "iterativeError", "setInterval")] + [
+        ("kinova", kinova_gen3, m) for m in ("adaptiveJerk", "setInterval")]
+    for who, ex, method in cases:
+        cfg = ex.Config(verbose=False, use_derivative_interpolation=True,
+                        keypoint_method=method,
+                        **({"minN": 8} if method == "setInterval" else {}))
+        run = run_example(ex, record=True, cfg=cfg)
+        timer, phases = run["timer"], run["timer"].totals_ms()
+        per = keypoint_rounds(run)
+        healthy = all(np.isfinite(s.x).all() and not bool(s.diverged)
+                      for s in run["sols"])
+        lanes_ok = all(sum(lanes) == k for lanes, k in per)
+        if method == "iterativeError":
+            launch_ok = (run["megajac"] == len(run["calls"])
+                         and all(1 <= len(lanes) <= depth and lanes[0] == 3
+                                 for lanes, _ in per))
+        else:
+            launch_ok = (run["megajac"] == len(per)
+                         and all(len(lanes) == 1 for lanes, _ in per))
+        kd = kernel_data_for_system(
+            ex.build_system(cfg, device="cuda")[0])
+        ok_j, jrep = jac_check_calls(kd, run["calls"], False,
+                                     per_scenario=True)
+        task = arm_task("kinova", run["states"], run["cost"],
+                        run["sols"][0]) if who == "kinova" else {}
+        held = who == "kinova" and method != "setInterval"
+        ok = bool(healthy and lanes_ok and launch_ok and ok_j
+                  and run["megaroll"] == timer.counts["rollout"] > 0
+                  and (not held or (task["met"] and task["height"])))
+        pcts = [float(p) for s in run["sols"]
+                for p in s.stats.percent_derivs[:int(s.iterations)] if p > 0]
+        emit({"phase": "scenario_keypoints", "ok": ok, "example": who,
+              "method": method, "config": kp.from_config(cfg)._asdict(),
+              "seconds": run["seconds"],
+              "iterations": [int(s.iterations) for s in run["sols"]],
+              "costs": [float(s.cost) for s in run["sols"]],
+              "percent_derivs_mean": float(np.mean(pcts)) if pcts else 0.0,
+              "phase_ms": {"rollout": phases.get("rollout", 0.0),
+                           "jac": phases.get("jac", 0.0),
+                           "lerp": phases.get("derivs", 0.0)
+                           - phases.get("jac", 0.0),
+                           "riccati": phases.get("riccati", 0.0)},
+              "derivative_calls": len(per),
+              "megajac_cold_launches": run["megajac"],
+              "lanes_per_launch": [c[0].shape[-1] for c in run["calls"]],
+              "megaroll_launches": run["megaroll"],
+              "linesearch_chunks": timer.counts["rollout"],
+              "host_syncs": run["syncs"], "jac_check": jrep, "task": task,
+              "task_held": held})
+        if not ok:
+            fail("scenario_keypoints", f"{who} {method}: unhealthy, off its "
+                 "kernels, a call's lanes off its mask, or the task missed")
+
+
+def phase_flagship_keypoints():
+    """A cut of the batched flagship (its entry solve and 2 resolves, B
+    256) with adaptiveJerk at the cheetah's thresholds, beside the same
+    cut with the flagship's setInterval-8: resolves/s, the jac phase, peak
+    memory, chain health.  Each interpolation runs once untimed to warm
+    up, then twice in the order ABBA, all on the same seed; the summary
+    gives each one's median and spread.  Fails unless every run ends
+    finite, launches megaroll and launches megajac once per iLQR
+    round."""
+    import statistics
+    import torch
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.solver import keypoints as kp
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+    R = 2
+    methods = {"setInterval-8": None,
+               "adaptiveJerk": kp.DerivsInterpolation("adaptiveJerk",
+                                                      **KP_CHEETAH)}
+    order = ["setInterval-8", "adaptiveJerk"]
+    timed = {label: [] for label in order}
+    for i, label in enumerate(order + order + order[::-1]):
+        timer = PhaseTimer()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res, secs = run_flagship("fused", R, seed=11, timer=timer,
+                                 derivs=methods[label])
+        check_result(res, 50, R, "flagship_keypoints")
+        phases, rounds = timer.totals_ms(), timer.counts["riccati"]
+        ok = megajac.launches == rounds > 0 and megaroll.launches > 0
+        line = {"phase": "flagship_keypoints", "ok": ok, "interpolation": label,
+                "pass": "warm-up" if i < 2 else i - 1,
+                "batch": BATCH, "resolves": R, "seconds": secs,
+                "resolves_per_s": BATCH * (R + 1) / secs,
+                "ilqr_rounds": rounds, "megajac_launches": megajac.launches,
+                "megaroll_launches": megaroll.launches,
+                "phase_ms": {"rollout_kernel": phases.get("rollout", 0.0),
+                             "jac": phases.get("jac", 0.0),
+                             "lerp": phases.get("derivs", 0.0)
+                             - phases.get("jac", 0.0),
+                             "riccati": phases.get("riccati", 0.0)},
+                "jac_ms_per_call": phases.get("jac", 0.0)
+                / max(megajac.launches, 1),
+                "iterations_mean": res.iterations.float().mean().item(),
+                "diverged_fraction": res.diverged.float().mean().item(),
+                "dead_fraction": res.dead.float().mean().item(),
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated()}
+        emit(line)
+        if not ok:
+            fail("flagship_keypoints", f"{label}: megajac launched "
+                 f"{megajac.launches} times in {rounds} rounds, megaroll "
+                 f"{megaroll.launches} times")
+        if i >= 2:
+            timed[label].append(line)
+
+    def summary(lines, key):
+        vals = [key(x) for x in lines]
+        return {"median": statistics.median(vals), "min": min(vals),
+                "max": max(vals)}
+    emit({"phase": "flagship_keypoints_summary", "passes": 2, "order": "ABBA",
+          **{label: {"resolves_per_s": summary(
+              lines, lambda x: x["resolves_per_s"]),
+              "jac_ms": summary(lines, lambda x: x["phase_ms"]["jac"]),
+              "lerp_ms": summary(lines, lambda x: x["phase_ms"]["lerp"]),
+              "riccati_ms": summary(lines,
+                                    lambda x: x["phase_ms"]["riccati"]),
+              "rollout_ms": summary(
+                  lines, lambda x: x["phase_ms"]["rollout_kernel"])}
+             for label, lines in timed.items()}})
+
+
+MODEL_DIR = REPO / "build" / "model_files"   # the phase's written files
+MESH_LANES = 49
+# a revolute arm on a vertical slide whose forearm is an OBJ mesh (written
+# by model_files) over a ground halfspace
+MESH_URDF = """<robot name="mesh_arm">
+  <link name="base"/>
+  <link name="carriage">
+    <inertial><mass value="2.0"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+  </link>
+  <link name="forearm">
+    <inertial><mass value="0.6"/><origin xyz="0.15 0 0"/>
+      <inertia ixx="0.001" iyy="0.006" izz="0.006" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision><origin xyz="0.15 0 0"/>
+      <geometry><mesh filename="forearm.obj" scale="1 1 1"/></geometry>
+      <drake:proximity_properties><drake:compliant_hydroelastic/>
+        <drake:hydroelastic_modulus value="5e5"/>
+        <drake:hunt_crossley_dissipation value="1.0"/>
+        <drake:mu_static value="0.6"/><drake:mu_dynamic value="0.5"/>
+      </drake:proximity_properties></collision>
+  </link>
+  <joint name="lift" type="prismatic">
+    <parent link="base"/><child link="carriage"/>
+    <origin xyz="0 0 0.12"/><axis xyz="0 0 1"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <parent link="carriage"/><child link="forearm"/>
+    <axis xyz="0 1 0"/>
+  </joint>
+  <transmission name="t1"><joint name="lift"/><actuator name="a1"/>
+  </transmission>
+  <transmission name="t2"><joint name="elbow"/><actuator name="a2"/>
+  </transmission>
+</robot>
+"""
+
+
+def sdf_cart_pole(dev, dt=1e-2):
+    """The cart-pole from the port's cart_pole.sdf, no contact model."""
+    from drake_ddp_tpu_torch.contact.geometry import GeometrySet
+    from drake_ddp_tpu_torch.io.sdf import add_sdf
+    from drake_ddp_tpu_torch.models import CART_POLE_SDF
+    from drake_ddp_tpu_torch.multibody.model import ModelBuilder
+    from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
+    mb = ModelBuilder()
+    add_sdf(mb, GeometrySet(), CART_POLE_SDF)
+    return make_multibody_system(mb.finalize(device=dev), None, dt)
+
+
+def mesh_arm(dev):
+    """MESH_URDF's arm over a ground halfspace, its forearm OBJ (an
+    elongated vertex cloud) written under build/: (system, the mesh's
+    cover)."""
+    import numpy as np
+    from drake_ddp_tpu_torch.contact.geometry import (
+        HALFSPACE, CollisionGeometry, ContactProps, GeometrySet,
+        build_contact_model)
+    from drake_ddp_tpu_torch.io.mesh import cover_mesh
+    from drake_ddp_tpu_torch.io.urdf import add_urdf, parse_urdf
+    from drake_ddp_tpu_torch.multibody.model import ModelBuilder
+    from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
+    MODEL_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(8)
+    v = rng.normal(size=(400, 3)) * np.array([0.08, 0.015, 0.02])
+    (MODEL_DIR / "forearm.obj").write_text(
+        "".join(f"v {a:.17g} {b:.17g} {c:.17g}\n" for a, b, c in v))
+    mb, gs = ModelBuilder(), GeometrySet()
+    add_urdf(mb, gs, parse_urdf(MESH_URDF, base_dir=str(MODEL_DIR)),
+             floating=False)
+    gs.add(CollisionGeometry(-1, HALFSPACE, np.zeros(3), np.eye(3),
+                             np.zeros(1), ContactProps(modulus=5e6),
+                             "ground"))
+    system = make_multibody_system(
+        mb.finalize(device=dev), build_contact_model(gs, device=dev), 1e-2,
+        contact_iters=4)
+    return system, cover_mesh(str(MODEL_DIR / "forearm.obj"))
+
+
+def generic_tapes(x0, u0, T, gen, scale=0.3):
+    """Seeded closed-loop tapes (float64) around states x0 (n, L) and
+    inputs u0 (m, L): x0, eps, u_bar, kappa, K, x_bar."""
+    import torch
+    n, L = x0.shape
+    m = u0.shape[0]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=x0.device,
+                                 dtype=torch.float64)
+    return (x0, torch.rand(L, generator=gen, device=x0.device,
+                           dtype=torch.float64),
+            u0[None] + scale * rnd(T, m, L), scale * rnd(T, m, L),
+            0.05 * rnd(T, m, n, L), x0[None] + 0.05 * rnd(T, n, L))
+
+
+def phase_model_files(results):
+    """Model files on the card.  The cart-pole from the port's
+    cart_pole.sdf with no contact model: megastep against the analytic
+    cart-pole step at tests/test_sdf.py's 1e-4 / 1e-5 and against its
+    plain step (3 err_plain_f32 + 1e-5), megaroll held step by step to its
+    plain version (rollout_step_check), the cold megajac by jac_check; the
+    class-API swing-up (N 200, beta 0.9) on megaroll and the cold megajac
+    ending within 0.2 of upright (tests/test_sdf.py:78-95), its cost
+    printed beside the analytic cart-pole's golden, one megaroll launch a
+    linesearch chunk and one megajac launch a fresh-derivative round.  A
+    URDF text whose forearm is an OBJ mesh, covered by spheres above a
+    ground halfspace: megastep held to its plain step at 49 lanes."""
+    import numpy as np
+    import torch
+    from drake_ddp_tpu_torch.dynamics.analytic import cart_pole_system
+    from drake_ddp_tpu_torch.ops._table import kernel_data_for_system
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll, rollout_plain
+    from drake_ddp_tpu_torch.ops.megastep import megastep
+    from drake_ddp_tpu_torch.solver.api import (
+        IterativeLinearQuadraticRegulator)
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    system = sdf_cart_pole(dev)
+    kd = kernel_data_for_system(system)
+    L, T = 64, 49
+    x64 = 0.7 * torch.randn((4, L), generator=gen, device=dev,
+                            dtype=torch.float64)
+    u64 = 2.0 * torch.randn((1, L), generator=gen, device=dev,
+                            dtype=torch.float64)
+    x32, u32 = x64.float(), u64.float()
+    got = megastep(kd, x32, u32)
+    ref = cart_pole_system(dt=1e-2).lane_step_fn(x32, u32)
+    truth, plain = kd.step(x64, u64), kd.step(x32, u32)
+    e_k = (got.double() - truth).abs().max().item()
+    e_p = (plain.double() - truth).abs().max().item()
+    ok_step = bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-5)
+                   and e_k <= 3.0 * e_p + 1e-5)
+    tapes64 = generic_tapes(x64, u64, T, gen)
+    tapes32 = [a.float().contiguous() for a in tapes64]
+    xs, us = megaroll(kd, *tapes32)
+    torch.cuda.synchronize()
+    ok_roll, roll = rollout_step_check(kd, tapes64, xs, us)
+    jac = megajac(kd, x32, u32)
+    ok_jac, jrep = jac_check(kd, x64, u64, jac, False)
+    ms = {"megastep": cuda_ms(lambda: megastep(kd, x32, u32), 5),
+          "megaroll": cuda_ms(lambda: megaroll(kd, *tapes32), 3),
+          "megajac_cold": cuda_ms(lambda: megajac(kd, x32, u32), 3)}
+    plain_ms = {"megastep": cuda_ms(lambda: kd.step(x32, u32), 2),
+                "megaroll": cuda_ms(lambda: rollout_plain(kd.step, *tapes32),
+                                    1),
+                "megajac_cold": cuda_ms(lambda: kd.lane_jac(False)(x32, u32),
+                                        1)}
+    n, m = kd.n, kd.m
+    bounds = {   # the same counts as the flagship phases', at these shapes
+        "megastep": bound_ms((2 * n + m) * L * 4, step_ops(kd) * L),
+        "megaroll": bound_ms((n + 1 + T * (3 * m + m * n + 2 * n)) * L * 4,
+                             T * L * (step_ops(kd) + 2 * m * n + n + 3 * m)),
+        "megajac_cold": bound_ms(((n + m) + n * (n + m)) * L * 4,
+                                 jac_ops(kd, False) * L)}
+    # the swing-up through the class API
+    N, dt = 200, 1e-2
+    timer = PhaseTimer()
+    ilqr = IterativeLinearQuadraticRegulator(system, N, beta=0.9,
+                                             verbose=False, device="cuda",
+                                             timer=timer)
+    ilqr.SetInitialState(np.zeros(4))
+    ilqr.SetTargetState(np.array([0.0, np.pi, 0.0, 0.0]))
+    ilqr.SetRunningCost(dt * np.diag([10.0, 10.0, 0.1, 0.1]),
+                        dt * 0.001 * np.eye(1))
+    ilqr.SetTerminalCost(np.diag([100.0, 100.0, 10.0, 10.0]))
+    zero_counts()
+    xsol, _, solve_s, cost = ilqr.Solve()
+    launches = {"megaroll": megaroll.launches,
+                "megajac_cold": megajac.launches,
+                "megastep": megastep.launches}
+    upright = abs(abs(float(xsol[1, -1])) - np.pi)
+    ok_swing = bool(upright < 0.2 and np.isfinite(xsol).all()
+                    and launches["megaroll"] == timer.counts["rollout"] > 0
+                    and launches["megajac_cold"] == timer.counts["jac"] > 0)
+    # the mesh-covered arm over the ground
+    arm, cover = mesh_arm(dev)
+    kda = kernel_data_for_system(arm)
+    q = torch.stack([0.03 * torch.randn(MESH_LANES, generator=gen, device=dev,
+                                        dtype=torch.float64),
+                     1.2 * (torch.rand(MESH_LANES, generator=gen, device=dev,
+                                       dtype=torch.float64) - 0.5)])
+    xa = torch.cat([q, 0.5 * torch.randn((2, MESH_LANES), generator=gen,
+                                         device=dev, dtype=torch.float64)])
+    ua = 2.0 * torch.randn((2, MESH_LANES), generator=gen, device=dev,
+                           dtype=torch.float64)
+    got_a = megastep(kda, xa.float(), ua.float())
+    truth_a = kda.step(xa, ua)
+    e_ka = (got_a.double() - truth_a).abs().max().item()
+    e_pa = (kda.step(xa.float(), ua.float()).double()
+            - truth_a).abs().max().item()
+    # lanes whose covered forearm reaches into the ground (the spheres'
+    # lowest points, the elbow at z 0.12 + lift, rotation about y)
+    c = np.array([sc for sc, _ in cover.spheres]) + [0.15, 0.0, 0.0]
+    r = np.array([rr for _, rr in cover.spheres])
+    lift, elbow = (a[:, None] for a in q.cpu().numpy())
+    z = 0.12 + lift - np.sin(elbow) * c[:, 0] + np.cos(elbow) * c[:, 2]
+    in_contact = int(((z - r) < 0).any(axis=1).sum())
+    ok_mesh = bool(np.isfinite(e_ka) and e_ka <= 3.0 * e_pa + 1e-5
+                   and in_contact >= MESH_LANES // 4)
+    mesh_ms = cuda_ms(lambda: megastep(kda, xa.float(), ua.float()), 5)
+    mesh_plain_ms = cuda_ms(lambda: kda.step(xa.float(), ua.float()), 2)
+    mesh_bound = bound_ms((2 * kda.n + kda.m) * MESH_LANES * 4,
+                          step_ops(kda) * MESH_LANES)
+    ok = ok_step and ok_roll and ok_jac and ok_swing and ok_mesh
+    emit({"phase": "model_files", "ok": ok,
+          "sdf_cart_pole": {
+              "contacts": kd.sizes[4], "lanes": L,
+              "megastep_vs_analytic_max": (got - ref).abs().max().item(),
+              "megastep_err_vs_f64": e_k, "plain_err_vs_f64": e_p,
+              "megastep_ok": ok_step, "megaroll_ok": ok_roll,
+              "megaroll": roll, "megajac_cold_ok": ok_jac,
+              "megajac_cold": jrep, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bounds},
+          "swing_up": {"ok": ok_swing, "theta_end_off_pi": upright,
+                       "cost": float(cost),
+                       "golden_analytic_cart_pole": GOLDEN["cart_pole"],
+                       "seconds": solve_s,
+                       "iterations": int(ilqr._solution.iterations),
+                       "linesearch_chunks": timer.counts["rollout"],
+                       "fresh_derivative_rounds": timer.counts["jac"],
+                       "launches": launches,
+                       "phase_ms": timer.totals_ms()},
+          "mesh_arm": {"ok": ok_mesh, "cover_route": cover.route,
+                       "spheres": len(cover.spheres),
+                       "contacts": kda.sizes[4], "lanes": MESH_LANES,
+                       "lanes_in_contact": in_contact,
+                       "err_kernel_vs_f64": e_ka, "err_plain_f32_vs_f64": e_pa,
+                       "criterion": "err_kernel <= 3 err_plain + 1e-5, a "
+                                    "quarter of the lanes in contact",
+                       "ms": mesh_ms, "plain_ms": mesh_plain_ms,
+                       "bound_ms": mesh_bound}})
+    if not ok:
+        fail("model_files", "a kernel is off its plain version on a model "
+             "file's system, or the SDF swing-up missed upright")
+    for k in ("megastep", "megaroll", "megajac_cold"):
+        results[k]["contact_free_sdf_cart_pole"] = {
+            "lanes": L, "ms": ms[k], "plain_ms": plain_ms[k],
+            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+            "swing_up_launches": launches[k]}
+    results["megastep"]["mesh_arm"] = {
+        "lanes": MESH_LANES, "ms": mesh_ms, "plain_ms": mesh_plain_ms,
+        "bound_ms": mesh_bound[0], "bound_by": mesh_bound[1]}
+
+
 def main():
     try:
         import torch
@@ -2103,6 +2808,10 @@ def main():
     phase_manip_kernels(results, runs)
     wall = phase_scenario_wall()
     phase_wall_kernels(results, wall)
+    phase_keypoints_kernels(results)
+    phase_scenario_keypoints()
+    phase_flagship_keypoints()
+    phase_model_files(results)
     phase_scenario_acrobot()
     phase_scenario_acrobot_mpc()
     phase_scenario_sqp()

@@ -2,9 +2,9 @@
 
 Port of ``drake_ddp_tpu/examples/cart_pole.py``: T = 2.0, dt = 0.01,
 x0 = 0, x_nom = [0, pi, 0, 0], Q = diag([10, 10, 0.1, 0.1]), R = 0.001 I,
-Qf = diag([100, 100, 10, 10]), beta = 0.9.  Derivative interpolation:
-setInterval; adaptiveJerk and iterativeError come with a later slice of
-the port and raise (ROADMAP Queue 1, item 10).
+Qf = diag([100, 100, 10, 10]), beta = 0.9.  Derivative interpolation
+(``use_derivative_interpolation``): setInterval, adaptiveJerk or
+iterativeError, with the JAX example's thresholds.
 
     python -m drake_ddp_tpu_torch.examples.cart_pole         # on the card
 """
@@ -18,7 +18,7 @@ import numpy as np
 
 from drake_ddp_tpu_torch.dynamics.analytic import cart_pole_system
 from drake_ddp_tpu_torch.solver.api import IterativeLinearQuadraticRegulator
-from drake_ddp_tpu_torch.solver.keypoints import DerivsInterpolation
+from drake_ddp_tpu_torch.solver.keypoints import from_config
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,12 @@ class Config:
     use_derivative_interpolation: bool = False
     keypoint_method: str = "adaptiveJerk"
     minN: int = 5
+    maxN: int = 10
+    jerk_threshold: float = 0.0001
+    # keypoint budget: caps the iterativeError bisection per level and
+    # bounds adaptiveJerk's keypoint count; None = uncapped
+    max_keypoints: Optional[int] = None
+    iterative_error_threshold: float = 5e-05
     verbose: bool = True
 
 
@@ -43,9 +49,7 @@ def build_system(cfg: Config):
 def build_solver(cfg: Config, device="cuda"):
     system = build_system(cfg)
     num_steps = int(cfg.T / cfg.dt)
-    interp: Optional[DerivsInterpolation] = None
-    if cfg.use_derivative_interpolation:
-        interp = DerivsInterpolation(cfg.keypoint_method, cfg.minN)
+    interp = from_config(cfg)
     ilqr = IterativeLinearQuadraticRegulator(
         system, num_steps, beta=cfg.beta,
         derivs_keypoint_method=interp, verbose=cfg.verbose, device=device,

@@ -16,8 +16,9 @@ contact task is multi-modal (local optima span costs 25..1100), so
 :func:`solve_multistart` solves ``num_starts`` perturbed tapes in one
 batched solve and keeps the best.
 
-Derivative interpolation: setInterval; adaptiveJerk and iterativeError
-come with a later slice of the port and raise (ROADMAP Queue 1, item 10).
+Derivative interpolation (``use_derivative_interpolation``):
+setInterval, adaptiveJerk or iterativeError, with the JAX example's
+thresholds.
 
     python -m drake_ddp_tpu_torch.examples.cart_pole_with_wall   # card
 """
@@ -45,8 +46,7 @@ from drake_ddp_tpu_torch.multibody.model import (PRISMATIC, REVOLUTE,
 from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
 from drake_ddp_tpu_torch.solver.api import IterativeLinearQuadraticRegulator
 from drake_ddp_tpu_torch.solver.ilqr import ILQRConfig, ILQRProblem
-from drake_ddp_tpu_torch.solver.keypoints import (SET_INTERVAL,
-                                                  DerivsInterpolation)
+from drake_ddp_tpu_torch.solver.keypoints import from_config
 from drake_ddp_tpu_torch.solver.multistart import multistart_ilqr
 
 
@@ -62,12 +62,16 @@ class Config:
     ball_radius: float = 0.05
     # wall: box(0.1, 1, 2) at x = -0.5
     wall_x: float = -0.5
-    # derivative interpolation; not the JAX Config's maxN,
-    # jerk_threshold, max_keypoints and iterative_error_threshold, which
-    # only the unported dynamic keypoint methods read
+    # derivative interpolation
     use_derivative_interpolation: bool = False
     keypoint_method: str = "setInterval"
     minN: int = 1
+    maxN: int = 100
+    jerk_threshold: float = 0.0007
+    # keypoint budget: caps the iterativeError bisection per level and
+    # bounds adaptiveJerk's keypoint count; None = uncapped
+    max_keypoints: Optional[int] = None
+    iterative_error_threshold: float = 5e-5
     contact_iters: int = 2
     # one batched multi-start solve finds the wall-bounce basin
     num_starts: int = 8
@@ -111,17 +115,6 @@ def build_system(cfg: Config = Config(), device="cuda"):
                                  contact_iters=cfg.contact_iters)
 
 
-def _interpolation(cfg: Config) -> Optional[DerivsInterpolation]:
-    if not cfg.use_derivative_interpolation:
-        return None
-    if cfg.keypoint_method != SET_INTERVAL:
-        raise NotImplementedError(
-            f"{cfg.keypoint_method}: the dynamic keypoint methods come with "
-            "a later slice of the port (ROADMAP Queue 1, item 10); use "
-            "setInterval")
-    return DerivsInterpolation(cfg.keypoint_method, cfg.minN)
-
-
 def costs(cfg: Config = Config()):
     """Quadratic weights (Q, R, Qf) as numpy arrays."""
     return (cfg.dt * np.diag([0.1, 1.0, 0.01, 0.01]),
@@ -131,7 +124,7 @@ def costs(cfg: Config = Config()):
 
 def build_solver(cfg: Config = Config(), device="cuda", timer=None):
     """The single-start solver on ``device``, set up to solve."""
-    interp = _interpolation(cfg)
+    interp = from_config(cfg)
     system = build_system(cfg, device=device)
     num_steps = int(cfg.T / cfg.dt)
     ilqr = IterativeLinearQuadraticRegulator(
@@ -156,7 +149,7 @@ def problem(cfg: Config = Config(), device="cuda"):
     Q, R, Qf = costs(cfg)
     prob = ILQRProblem(x0=t(X0), x_nom=t(X_NOM), Q=t(Q), R=t(R), Qf=t(Qf),
                        u_init=t(np.zeros((N - 1, 1))))
-    interp = _interpolation(cfg)
+    interp = from_config(cfg)
     scfg = ILQRConfig(num_steps=N, beta=cfg.beta, max_iters=cfg.max_iters,
                       **({} if interp is None else dict(derivs=interp)))
     return scfg, prob

@@ -14,8 +14,9 @@ corners instead).
 :func:`run` solves through
 :class:`~drake_ddp_tpu_torch.solver.api.IterativeLinearQuadraticRegulator`
 (megaroll rollouts and cold-Newton megajac derivatives on the card).
-Derivative interpolation: setInterval; adaptiveJerk and iterativeError
-come with a later slice of the port and raise.
+Derivative interpolation (``use_derivative_interpolation``):
+setInterval, adaptiveJerk or iterativeError, with the JAX example's
+thresholds.
 
     python -m drake_ddp_tpu_torch.examples.kinova_gen3     # on the card
 """
@@ -35,7 +36,7 @@ from drake_ddp_tpu_torch.io.urdf import add_urdf
 from drake_ddp_tpu_torch.models import gripper_static, kinova_gen3
 from drake_ddp_tpu_torch.multibody.model import ModelBuilder
 from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
-from drake_ddp_tpu_torch.solver.keypoints import DerivsInterpolation
+from drake_ddp_tpu_torch.solver.keypoints import from_config
 from drake_ddp_tpu_torch.utils.spatial import rpy_to_rot
 
 # Joint-angle definitions.
@@ -82,12 +83,6 @@ class Config:
     pad_face_quadrature: bool = False
 
 
-# Config fields that only the dynamic keypoint methods (and a keypoint
-# budget) read; a value other than the default raises in build_solver.
-DYNAMIC_KEYPOINT_FIELDS = ("maxN", "jerk_threshold", "max_keypoints",
-                           "iterative_error_threshold")
-
-
 def scenario_states(cfg: Config):
     """x0 and x_nom of the scenario."""
     q_start = Q_WRAP if cfg.scenario == "lift" else Q_PUSH
@@ -132,16 +127,8 @@ def build_solver(cfg: Config = Config(), device="cuda",
     ``deriv_kernel`` and ``timer`` as in
     :class:`~drake_ddp_tpu_torch.solver.api.
     IterativeLinearQuadraticRegulator`."""
-    later = [f for f in DYNAMIC_KEYPOINT_FIELDS
-             if getattr(cfg, f) != Config.__dataclass_fields__[f].default]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: the thresholds and budgets of the dynamic "
-            "keypoint methods come with a later slice of the port (ROADMAP "
-            "Queue 1, item 10)")
     system, model = build_system(cfg, device=device)
-    interp = (DerivsInterpolation(cfg.keypoint_method, cfg.minN)
-              if cfg.use_derivative_interpolation else None)
+    interp = from_config(cfg)
     delta = cfg.delta if cfg.delta is not None else (
         1e-5 if cfg.scenario == "lift" else 1e-3)
     x0, x_nom = scenario_states(cfg)

@@ -12,9 +12,9 @@ delta = 1e-2, receding-horizon resolves every replan_steps = 4 steps.
 :class:`~drake_ddp_tpu_torch.solver.api.IterativeLinearQuadraticRegulator`
 (megaroll rollouts and cold-Newton megajac derivatives on the card).
 The batched MPC entry point is :func:`drake_ddp_tpu_torch.mpc.driver.
-mpc_solve_batched`.  Derivative interpolation: setInterval;
-adaptiveJerk and iterativeError come with a later slice of the port and
-raise.
+mpc_solve_batched`.  Derivative interpolation (``Config``'s
+``use_derivative_interpolation``): setInterval, adaptiveJerk or
+iterativeError, with the JAX example's thresholds.
 
     python -m drake_ddp_tpu_torch.examples.mini_cheetah     # on the card
 """
@@ -40,7 +40,7 @@ from drake_ddp_tpu_torch.models import mini_cheetah as mini_cheetah_robot
 from drake_ddp_tpu_torch.multibody.model import ModelBuilder
 from drake_ddp_tpu_torch.multibody.plant import make_multibody_system
 from drake_ddp_tpu_torch.solver.api import IterativeLinearQuadraticRegulator
-from drake_ddp_tpu_torch.solver.keypoints import DerivsInterpolation
+from drake_ddp_tpu_torch.solver.keypoints import from_config
 
 # Standing configuration and feed-forward torques.
 Q0 = np.asarray(
@@ -86,6 +86,12 @@ class Config:
     use_derivative_interpolation: bool = False
     keypoint_method: str = "adaptiveJerk"
     minN: int = 2
+    maxN: int = 20
+    jerk_threshold: float = 0.3
+    # keypoint budget: caps the iterativeError bisection per level and
+    # bounds adaptiveJerk's keypoint count; None = uncapped
+    max_keypoints: Optional[int] = None
+    iterative_error_threshold: float = 10.0
     verbose: bool = True
 
 
@@ -142,9 +148,7 @@ def build_solver(cfg: Config = Config(), device="cuda",
     IterativeLinearQuadraticRegulator`."""
     system, _ = build_system(cfg, device=device)
     num_steps = int(cfg.T / cfg.dt)
-    interp: Optional[DerivsInterpolation] = None
-    if cfg.use_derivative_interpolation:
-        interp = DerivsInterpolation(cfg.keypoint_method, cfg.minN)
+    interp = from_config(cfg)
     ilqr = IterativeLinearQuadraticRegulator(
         system, num_steps, beta=cfg.beta, delta=cfg.delta, gamma=cfg.gamma,
         derivs_keypoint_method=interp, verbose=cfg.verbose,

@@ -1,28 +1,50 @@
-"""Robot description records -> multibody model + contact scene.
+"""URDF parser: robot description files -> multibody model + contact scene.
 
-Port of the part of ``drake_ddp_tpu/io/urdf.py`` this slice uses: the
-``Urdf*`` host records and :func:`add_urdf`, which feeds a
-:class:`~drake_ddp_tpu_torch.multibody.model.ModelBuilder` and a
-:class:`~drake_ddp_tpu_torch.contact.geometry.GeometrySet`.  Sphere,
-box, cylinder and capsule collisions are supported; the robots of
-:mod:`drake_ddp_tpu_torch.models` carry their mesh collisions already
-approximated by spheres.  Bounding-sphere covers of mesh files and the
-XML parser come with the rest of the manipulation slice (ROADMAP Queue
-1, item 11).
+Port of ``drake_ddp_tpu/io/urdf.py``, host-side Python: it reads links,
+joints, transmissions, collision geometries and Drake's ``drake:`` URDF
+extensions (proximity properties, reflected rotor inertia, collision
+filter groups) into ``Urdf*`` records, and :func:`add_urdf` feeds them to
+a :class:`~drake_ddp_tpu_torch.multibody.model.ModelBuilder` and a
+:class:`~drake_ddp_tpu_torch.contact.geometry.GeometrySet`.
+
+Supported surface:
+- links: inertial mass/origin(xyz, rpy)/inertia (re-expressed about the
+  com in the link frame);
+- joints: revolute, continuous, prismatic, fixed, floating, with
+  origin/axis/<dynamics damping>;
+- actuation from <transmission> blocks (only joints with a transmission
+  get an actuator), with drake:gear_ratio/drake:rotor_inertia reflected
+  inertia;
+- collision geometries sphere/box/cylinder/capsule/mesh with
+  <drake:proximity_properties>; a mesh becomes bounding spheres
+  (:func:`drake_ddp_tpu_torch.io.mesh.cover_mesh`);
+- <drake:collision_filter_group> / drake:ignored_collision_filter_group /
+  drake:member.
+
+The ``drake:`` namespace prefix is often *undeclared*, which stock XML
+parsers reject; the text is preprocessed so tags parse regardless.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
+import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from drake_ddp_tpu_torch.contact.geometry import (
+    BOX,
+    CAPSULE,
+    CYLINDER,
+    SPHERE,
     CollisionGeometry,
     ContactProps,
     GeometrySet,
 )
+from drake_ddp_tpu_torch.io.mesh import MeshCover, cover_mesh
 from drake_ddp_tpu_torch.multibody.model import (
     FIXED,
     FREE,
@@ -38,6 +60,28 @@ _JOINT_TYPES = {
     "fixed": FIXED,
     "floating": FREE,
 }
+
+
+def _rpy_to_rot(rpy: Sequence[float]) -> np.ndarray:
+    """URDF fixed-axis roll-pitch-yaw -> rotation matrix R = Rz Ry Rx."""
+    r, p, y = rpy
+    cr, sr = np.cos(r), np.sin(r)
+    cp, sp = np.cos(p), np.sin(p)
+    cy, sy = np.cos(y), np.sin(y)
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def _parse_origin(el: Optional[ET.Element]) -> Tuple[np.ndarray, np.ndarray]:
+    """<origin xyz rpy> -> (pos (3,), rot (3,3)); identity if absent."""
+    if el is None:
+        return np.zeros(3), np.eye(3)
+    xyz = np.array([float(v) for v in el.get("xyz", "0 0 0").split()])
+    rpy = [float(v) for v in el.get("rpy", "0 0 0").split()]
+    return xyz, _rpy_to_rot(rpy)
+
 
 
 @dataclasses.dataclass
@@ -79,15 +123,212 @@ class UrdfRobot:
     name: str
     links: Dict[str, UrdfLink]
     joints: List[UrdfJoint]
-    root: Optional[str]       # None: every link hangs off "world" joints
+    # link with no parent joint; None when every link is reached through
+    # explicit <parent>world</parent> joints (SDF models, io/sdf.py)
+    root: Optional[str]
     filtered_link_pairs: List[Tuple[str, str]]
-    dir: str
+    dir: str                                # base dir for mesh paths
+
+
+def _preprocess(text: str) -> str:
+    """Make real-world URDFs parseable: rewrite the (often undeclared)
+    ``drake:`` tag prefix to plain ``drake-`` tags and drop any xmlns
+    declaration for it."""
+    text = re.sub(r"<(/?)drake:", r"<\1drake-", text)
+    text = re.sub(r"\sxmlns:drake=\"[^\"]*\"", "", text)
+    # xacro files may carry other undeclared prefixes on the root tag only;
+    # declare xacro if referenced (mini_cheetah_mesh.urdf:2 declares it).
+    return text
+
+
+def _parse_props(collision: ET.Element) -> ContactProps:
+    pp = collision.find("drake-proximity_properties")
+    if pp is None:
+        return ContactProps(modulus=np.inf, dissipation=0.0,
+                            mu_static=1.0, mu_dynamic=1.0)
+
+    def val(tag, default):
+        el = pp.find(tag)
+        return float(el.get("value")) if el is not None else default
+
+    rigid = pp.find("drake-rigid_hydroelastic") is not None
+    modulus = np.inf if rigid else val("drake-hydroelastic_modulus", 5e6)
+    return ContactProps(
+        modulus=modulus,
+        dissipation=val("drake-hunt_crossley_dissipation", 0.0),
+        # Drake's default CoulombFriction when the URDF gives none is
+        # mu_static = mu_dynamic = 1.0
+        mu_static=val("drake-mu_static", 1.0),
+        mu_dynamic=val("drake-mu_dynamic", 1.0),
+        resolution_hint=val("drake-mesh_resolution_hint", 0.05),
+    )
+
+
+def _parse_collision(el: ET.Element) -> Optional[UrdfCollision]:
+    geom = el.find("geometry")
+    if geom is None:
+        return None
+    pos, rot = _parse_origin(el.find("origin"))
+    props = _parse_props(el)
+    sphere = geom.find("sphere")
+    box = geom.find("box")
+    cyl = geom.find("cylinder")
+    # capsule: the <capsule> URDF extension and Drake's <drake:capsule>
+    # (the drake: prefix is rewritten to drake- tags by _preprocess)
+    capsule = geom.find("capsule")
+    if capsule is None:
+        capsule = geom.find("drake-capsule")
+    mesh = geom.find("mesh")
+    if sphere is not None:
+        size = np.array([float(sphere.get("radius"))])
+        return UrdfCollision(SPHERE, pos, rot, size, None, props)
+    if box is not None:
+        full = np.array([float(v) for v in box.get("size").split()])
+        return UrdfCollision(BOX, pos, rot, 0.5 * full, None, props)
+    if capsule is not None:
+        size = np.array([
+            float(capsule.get("radius")),
+            0.5 * float(capsule.get("length")),
+        ])
+        return UrdfCollision(CAPSULE, pos, rot, size, None, props)
+    if cyl is not None:
+        size = np.array([
+            float(cyl.get("radius")),
+            0.5 * float(cyl.get("length")),
+        ])
+        return UrdfCollision(CYLINDER, pos, rot, size, None, props)
+    if mesh is not None:
+        scale = [float(v) for v in mesh.get("scale", "1 1 1").split()]
+        return UrdfCollision("mesh", pos, rot, np.zeros(1),
+                             mesh.get("filename"), props,
+                             mesh_scale=scale[0])
+    return None
+
+
+def parse_urdf(path_or_text: str, base_dir: Optional[str] = None) -> UrdfRobot:
+    """Parse a URDF file path (or raw XML text) into a host-side IR."""
+    if "<robot" in path_or_text:
+        text = path_or_text
+        directory = base_dir or "."
+    else:
+        with open(path_or_text) as f:
+            text = f.read()
+        directory = base_dir or os.path.dirname(os.path.abspath(path_or_text))
+
+    root = ET.fromstring(_preprocess(text))
+
+    links: Dict[str, UrdfLink] = {}
+    for le in root.findall("link"):
+        name = le.get("name")
+        inertial = le.find("inertial")
+        mass, com, I_body = 0.0, np.zeros(3), np.zeros((3, 3))
+        if inertial is not None:
+            mass_el = inertial.find("mass")
+            mass = float(mass_el.get("value")) if mass_el is not None else 0.0
+            com, R_il = _parse_origin(inertial.find("origin"))
+            ie = inertial.find("inertia")
+            if ie is not None:
+                ixx = float(ie.get("ixx", 0)); iyy = float(ie.get("iyy", 0))
+                izz = float(ie.get("izz", 0)); ixy = float(ie.get("ixy", 0))
+                ixz = float(ie.get("ixz", 0)); iyz = float(ie.get("iyz", 0))
+                I_i = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+                # URDF inertia is about the inertial origin (the com) in
+                # the inertial frame; re-express in the link frame.
+                I_body = R_il @ I_i @ R_il.T
+        cols = []
+        for ce in le.findall("collision"):
+            c = _parse_collision(ce)
+            if c is not None:
+                cols.append(c)
+        links[name] = UrdfLink(name, mass, com, I_body, cols)
+
+    # Transmissions -> actuated joints (+ reflected rotor inertia).
+    actuated: Dict[str, float] = {}
+    for te in root.findall("transmission"):
+        je = te.find("joint")
+        if je is None:
+            continue
+        jname = je.get("name")
+        arm = 0.0
+        ae = te.find("actuator")
+        if ae is not None:
+            gre = ae.find("drake-gear_ratio")
+            rie = ae.find("drake-rotor_inertia")
+            gear = float(gre.get("value")) if gre is not None else 1.0
+            rotor = float(rie.get("value")) if rie is not None else 0.0
+            arm = gear * gear * rotor
+        actuated[jname] = arm
+
+    joints: List[UrdfJoint] = []
+    children = set()
+    for je in root.findall("joint"):
+        jtype = je.get("type")
+        if jtype not in _JOINT_TYPES:
+            raise ValueError(f"unsupported joint type {jtype!r}")
+        pos, rot = _parse_origin(je.find("origin"))
+        axis_el = je.find("axis")
+        axis = (
+            np.array([float(v) for v in axis_el.get("xyz").split()])
+            if axis_el is not None
+            else np.array([1.0, 0.0, 0.0])  # URDF default axis
+        )
+        nrm = np.linalg.norm(axis)
+        if nrm > 0:
+            axis = axis / nrm
+        dyn = je.find("dynamics")
+        damping = float(dyn.get("damping", 0.0)) if dyn is not None else 0.0
+        name = je.get("name")
+        child = je.find("child").get("link")
+        children.add(child)
+        joints.append(
+            UrdfJoint(
+                name=name,
+                type=jtype,
+                parent=je.find("parent").get("link"),
+                child=child,
+                origin_pos=pos,
+                origin_rot=rot,
+                axis=axis,
+                damping=damping,
+                actuated=(name in actuated and jtype not in ("fixed", "floating")),
+                armature=actuated.get(name, 0.0),
+            )
+        )
+
+    roots = [n for n in links if n not in children]
+    if len(roots) != 1:
+        raise ValueError(f"expected exactly one root link, got {roots}")
+
+    # Collision filter groups (Drake drake: extension;
+    # GEN3_URDF_V12.urdf:~520, mini_cheetah_mesh.urdf collision_filter_group).
+    groups: Dict[str, List[str]] = {}
+    ignores: List[Tuple[str, str]] = []
+    for ge in root.iter("drake-collision_filter_group"):
+        gname = ge.get("name")
+        groups[gname] = [m.get("link") for m in ge.findall("drake-member")]
+        for ig in ge.findall("drake-ignored_collision_filter_group"):
+            ignores.append((gname, ig.get("name")))
+    filtered: List[Tuple[str, str]] = []
+    for ga, gb in ignores:
+        for la in groups.get(ga, ()):  # unknown group -> no pairs
+            for lb in groups.get(gb, ()):
+                if la != lb:
+                    filtered.append((la, lb))
+
+    return UrdfRobot(
+        name=root.get("name", "robot"),
+        links=links,
+        joints=joints,
+        root=roots[0],
+        filtered_link_pairs=filtered,
+        dir=directory,
+    )
 
 
 def add_urdf(
     builder: ModelBuilder,
     geometry: Optional[GeometrySet],
-    robot: UrdfRobot,
+    robot: UrdfRobot | str,
     *,
     base_parent: int = -1,
     base_pos: Sequence[float] = (0.0, 0.0, 0.0),
@@ -97,25 +338,18 @@ def add_urdf(
     mesh_max_spheres: int = 4,
     mesh_refine: float = 1.0,
 ) -> Dict[str, int]:
-    """Add a robot record to a ModelBuilder (+ GeometrySet).
+    """Add a robot (a UrdfRobot record, a URDF file path or URDF text) to
+    a ModelBuilder (+ GeometrySet).
 
     ``base_parent`` / ``base_pos`` / ``base_rot`` place the root link
     relative to an existing body (-1 = world); ``floating=True`` gives
     the root a free (quaternion) joint, ``False`` welds it.  Joints are
-    added in document order (Drake's q/v slot order).  ``mesh_max_spheres``
-    and ``mesh_refine`` size the sphere cover of a mesh collision, as in
-    the JAX package; until covers are ported a mesh collision raises, and
-    so does a value of either other than its default.
+    added in document order (Drake's q/v slot order).  A mesh collision
+    becomes at most ``mesh_max_spheres`` bounding spheres, sliced
+    ``mesh_refine`` times as densely as the mesh's elongation asks.
     Returns {link_name: body_index}."""
-    if (mesh_max_spheres, mesh_refine) != (4, 1.0):
-        raise NotImplementedError(
-            "mesh_max_spheres and mesh_refine size bounding-sphere covers of "
-            "mesh files, which are not ported yet (ROADMAP Queue 1, item "
-            "11); the embedded models' meshes are already spheres")
-    if not isinstance(robot, UrdfRobot):
-        raise NotImplementedError(
-            "URDF text parsing is not ported yet (ROADMAP Queue 1, item "
-            "11); pass a UrdfRobot record, e.g. models.mini_cheetah()")
+    if isinstance(robot, str):
+        robot = parse_urdf(robot)
     base_rot = np.eye(3) if base_rot is None else np.asarray(base_rot)
     base_pos = np.asarray(base_pos, np.float64)
     body_index: Dict[str, int] = {}
@@ -131,7 +365,8 @@ def add_urdf(
         body_index[link_name] = idx
         if geometry is not None:
             for c in link.collisions:
-                _add_collision(geometry, idx, c)
+                _add_collision(geometry, idx, c, robot.dir,
+                               mesh_max_spheres, mesh_refine)
         return idx
 
     if robot.root is not None:
@@ -175,10 +410,19 @@ def add_urdf(
     return body_index
 
 
-def _add_collision(gs: GeometrySet, body: int, c: UrdfCollision):
-    if c.kind == "mesh":
-        raise NotImplementedError(
-            f"mesh collision {c.mesh_file!r}: bounding-sphere covers of mesh "
-            "files come with the rest of the manipulation slice (ROADMAP "
-            "Queue 1, item 11)")
-    gs.add(CollisionGeometry(body, c.kind, c.pos, c.rot, c.size, c.props))
+def _add_collision(gs: GeometrySet, body: int, c: UrdfCollision,
+                   base_dir: str = ".", mesh_max_spheres: int = 4,
+                   mesh_refine: float = 1.0) -> Optional[MeshCover]:
+    """Add one collision to ``gs``; a mesh as its bounding spheres (their
+    cover is returned, which says whether the native cover ran)."""
+    if c.kind != "mesh":
+        gs.add(CollisionGeometry(body, c.kind, c.pos, c.rot, c.size, c.props))
+        return None
+    cover = cover_mesh(os.path.join(base_dir, c.mesh_file), c.mesh_scale,
+                       mesh_max_spheres, mesh_refine)
+    for center, radius in cover.spheres:
+        gs.add(CollisionGeometry(
+            body, SPHERE, c.pos + c.rot @ center, np.eye(3),
+            np.array([radius]), c.props,
+            name=os.path.basename(c.mesh_file)))
+    return cover

@@ -21,7 +21,7 @@ checks, ``met``):
   float32 inputs, megajac's own precision;
 - ``lane_f64_noise_1e-7``, ``lane_f64_noise_1e-6``: that with relative
   noise of that size on every entry, seeded by ``--seed`` (13);
-- ``default_noise_1e-7``, ``default_noise_1e-6``, ``lane_f32_noise_1e-7``:
+- ``default_noise_1e-7`` to ``default_noise_1e-3``, ``lane_f32_noise_1e-7``:
   the default route, or the plain float32 one, with such noise.
 
 With ``--draws K`` a noise route runs K times, seeded ``--seed`` to
@@ -43,7 +43,8 @@ from pathlib import Path
 
 ROUTES = ("default", "lane_f32", "lane_f64", "lane_f64_noise_1e-7",
           "lane_f64_noise_1e-6", "default_noise_1e-7", "default_noise_1e-6",
-          "lane_f32_noise_1e-7")
+          "lane_f32_noise_1e-7", "default_noise_1e-5", "default_noise_1e-4",
+          "default_noise_1e-3")
 ROLLOUTS = ("fused", "megastep", "plain")
 EXAMPLES = ("mini_cheetah", "panda_fr3", "kinova_gen3")
 

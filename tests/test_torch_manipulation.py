@@ -260,35 +260,78 @@ def test_spatial_matches_jax():
           js.rpy_to_rot((0.3, -0.2, np.pi / 2)))
 
 
-def test_kinova_keypoint_methods_raise_until_ported():
-    """The Kinova example keeps its interpolation fields; a dynamic
-    keypoint method raises where the derivatives are computed."""
+def test_kinova_keypoint_methods_raise_until_ported(monkeypatch):
+    """Ported behaviour under the id of the test that asserted the raise:
+    the Kinova example's default interpolation (adaptiveJerk at the JAX
+    example's minN 5, maxN 40, jerk_threshold 1e-4) solves at T 0.1 (N
+    10), and every derivative call's percentage equals JAX
+    ``adaptive_jerk_mask``'s on that call's own trajectory; the solve's
+    per-round record is those percentages.  The whole solve against JAX's
+    is the slow test_kinova_adaptive_jerk_solve_matches_jax."""
+    from drake_ddp_tpu.examples import kinova_gen3 as jk
+    from drake_ddp_tpu.solver import keypoints as jkp
     from drake_ddp_tpu_torch.examples import kinova_gen3 as tk
+    from drake_ddp_tpu_torch.solver import keypoints as tkp
 
-    ilqr = tk.build_solver(tk.Config(use_derivative_interpolation=True,
-                                     verbose=False, T=0.03), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ilqr.Solve()
+    cfg = tk.Config(use_derivative_interpolation=True, verbose=False,
+                    T=0.1, contact_iters=2)
+    ilqr = tk.build_solver(cfg, device="cpu")
+    jcfg = jk.Config(use_derivative_interpolation=True)
+    assert tuple(ilqr.config.derivs) == (
+        jcfg.keypoint_method, jcfg.minN, jcfg.maxN, jcfg.jerk_threshold,
+        jcfg.iterative_error_threshold, jcfg.max_keypoints, None)
+    calls = []
+    derivs = tkp.compute_derivatives_batched
+
+    def recorded(jac_T, dcfg, x, u, root=False):
+        out = derivs(jac_T, dcfg, x, u, root=root)
+        calls.append((x.detach().clone(), out[2].clone()))
+        return out
+    monkeypatch.setattr(tkp, "compute_derivatives_batched", recorded)
+    x, u, _, cost = ilqr.Solve()
+    sol = ilqr._solution
+    k = int(sol.iterations)
+    assert np.isfinite(x).all() and np.isfinite(cost) and k > 0
+    jd = jkp.DerivsInterpolation(**ilqr.config.derivs._asdict())
+    N, n = calls[0][0].shape[1:]
+    assert N == 10
+    pcts = []
+    for xs, pct in calls:
+        mask = jkp.adaptive_jerk_mask(jd, jnp.asarray(xs[0].numpy()), N, n)
+        pcts.append(100.0 * int(np.asarray(mask).sum()) / (N - 1))
+        assert float(pct[0]) == pytest.approx(pcts[-1], abs=1e-4)
+    got = sol.stats.percent_derivs[:k]
+    fresh = got[got > 0]
+    np.testing.assert_allclose(fresh, pcts[-len(fresh):], atol=1e-4)
 
 
 @pytest.mark.parametrize("knob", [
     ("maxN", 30), ("jerk_threshold", 1e-3), ("max_keypoints", 12),
     ("iterative_error_threshold", 1e-3), ("mesh_max_spheres", 6)])
-def test_arm_knobs_without_a_port_raise(knob):
-    """A Config value that only an unported part would read (the dynamic
-    keypoint methods' thresholds and budget, a mesh's sphere cover)
-    raises instead of being ignored; the defaults build."""
+def test_arm_knobs_without_a_port_raise(knob, monkeypatch):
+    """Ported behaviour under the id of the test that asserted the raise:
+    each Kinova Config knob reaches what it names: the dynamic keypoint
+    methods' thresholds and budget the solver's DerivsInterpolation, the
+    mesh cover's size every add_urdf call."""
     from drake_ddp_tpu_torch.examples import kinova_gen3 as tk
 
     field, value = knob
-    with pytest.raises(NotImplementedError, match="item 1[01]"):
-        tk.build_solver(tk.Config(verbose=False, T=0.03, **{field: value}),
-                        device="cpu")
+    seen = []
+    add_urdf = tk.add_urdf
+    monkeypatch.setattr(tk, "add_urdf", lambda *a, **kw: seen.append(
+        kw["mesh_max_spheres"]) or add_urdf(*a, **kw))
+    ilqr = tk.build_solver(tk.Config(verbose=False, T=0.03,
+                                     use_derivative_interpolation=True,
+                                     **{field: value}), device="cpu")
+    if field == "mesh_max_spheres":
+        assert seen == [value, value]
+    else:
+        assert getattr(ilqr.config.derivs, field) == value
 
 
 def _solve_pin(jilqr, tilqr):
     """The port's per-scenario solve against JAX solve_ilqr on the same
-    problem: iterations +-1, final cost within 15%."""
+    problem: iterations +-1, final cost within 15%.  Returns JAX's."""
     from drake_ddp_tpu.solver.ilqr import solve_ilqr as jsolve
 
     ref = jax.jit(lambda p: jsolve(jilqr.system, jilqr.config, p),
@@ -300,6 +343,7 @@ def _solve_pin(jilqr, tilqr):
     assert abs(int(got.iterations) - int(ref.iterations)) <= 1, (
         int(got.iterations), int(ref.iterations))
     np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=0.15)
+    return ref
 
 
 @pytest.mark.slow
@@ -329,3 +373,25 @@ def test_panda_scenario_solve_matches_jax_solve_ilqr():
     tilqr = tp.build_solver(tp.Config(**kw), device="cpu")
     assert jilqr.N == tilqr.N == 5
     _solve_pin(jilqr, tilqr)
+
+
+@pytest.mark.slow
+def test_kinova_adaptive_jerk_solve_matches_jax():
+    """The Kinova example's adaptiveJerk solve at T 0.1 (N 10),
+    contact_iters 2, against JAX solve_ilqr on the example's own problem:
+    the solve pins, and equal per-round derivative percentages over the
+    rounds both ran (about a minute on one core: the JAX solve's compile)."""
+    from drake_ddp_tpu.examples import kinova_gen3 as jk
+    from drake_ddp_tpu_torch.examples import kinova_gen3 as tk
+
+    kw = dict(use_derivative_interpolation=True, T=0.1, contact_iters=2,
+              verbose=False)
+    jilqr = jk.build_solver(jk.Config(**kw))
+    tilqr = tk.build_solver(tk.Config(**kw), device="cpu")
+    assert jilqr.N == tilqr.N == 10
+    ref = _solve_pin(jilqr, tilqr)
+    got = tilqr._solution
+    k = min(int(got.iterations), int(ref.iterations))
+    np.testing.assert_allclose(got.stats.percent_derivs[:k],
+                               np.asarray(ref.stats.percent_derivs)[:k],
+                               atol=1e-4)

@@ -191,14 +191,27 @@ def test_entry_points_default_to_the_card():
         tmc.build_system(tmc.Config())
 
 
-def test_mesh_collision_names_the_later_slice():
+def test_mesh_collision_names_the_later_slice(tmp_path):
+    """A mesh collision becomes bounding spheres on its body (the cover of
+    the model-file slice), placed by the collision's pose and scale."""
     from drake_ddp_tpu_torch.contact.geometry import ContactProps, GeometrySet
+    from drake_ddp_tpu_torch.io.mesh import approximate_spheres
     from drake_ddp_tpu_torch.io.urdf import UrdfCollision, _add_collision
 
-    mesh = UrdfCollision("mesh", np.zeros(3), np.eye(3), np.ones(3),
-                         "link.obj", ContactProps())
-    with pytest.raises(NotImplementedError, match="manipulation slice"):
-        _add_collision(GeometrySet(), 0, mesh)
+    verts = np.random.default_rng(0).normal(size=(50, 3)) * [0.2, 0.02, 0.02]
+    (tmp_path / "link.obj").write_text(
+        "".join(f"v {a:.17g} {b:.17g} {c:.17g}\n" for a, b, c in verts))
+    rot = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    mesh = UrdfCollision("mesh", np.array([0.1, 0.0, 0.0]), rot, np.ones(3),
+                         "link.obj", ContactProps(), mesh_scale=2.0)
+    gs = GeometrySet()
+    cover = _add_collision(gs, 3, mesh, str(tmp_path), mesh_refine=1.5)
+    assert cover.route == "python" and 1 < len(gs.geoms) <= 4
+    want = approximate_spheres(2.0 * verts, 4, refine=1.5)
+    for g, (c, r) in zip(gs.geoms, want):
+        assert g.body == 3 and g.kind == "sphere" and g.name == "link.obj"
+        np.testing.assert_allclose(g.pos, mesh.pos + rot @ c)
+        assert float(g.size[0]) == r
 
 
 def _imports(path):
@@ -222,6 +235,10 @@ MANIPULATION = ("utils/spatial.py", "multibody/algorithms.py",
                 "models/_data_gripper_articulated.py", "io/urdf.py",
                 "ops/_table.py", "examples/_arm.py", "examples/panda_fr3.py",
                 "examples/kinova_gen3.py")
+# the keypoint and model-file slice's modules
+KEYPOINTS_IO = ("solver/keypoints.py", "io/__init__.py", "io/mesh.py",
+                "io/sdf.py", "io/urdf.py", "native/__init__.py",
+                "models/__init__.py", "ops/megajac.py")
 # the classic-task slice's modules
 CLASSIC = ("solver/parscan.py", "solver/multistart.py",
            "solver/transcription.py", "utils/linalg.py", "mpc/driver.py",
@@ -231,14 +248,16 @@ CLASSIC = ("solver/parscan.py", "solver/multistart.py",
 
 
 @pytest.mark.parametrize("where", ["package", "chip_smoke", "per_scenario",
-                                   "manipulation", "classic"])
+                                   "manipulation", "classic",
+                                   "keypoints_io"])
 def test_port_imports_no_jax(where):
     if where == "package":
         files = sorted((REPO / "drake_ddp_tpu_torch").rglob("*.py"))
-    elif where in ("per_scenario", "manipulation", "classic"):
+    elif where in ("per_scenario", "manipulation", "classic",
+                   "keypoints_io"):
         files = [REPO / "drake_ddp_tpu_torch" / f for f in {
             "per_scenario": PER_SCENARIO, "manipulation": MANIPULATION,
-            "classic": CLASSIC}[where]]
+            "classic": CLASSIC, "keypoints_io": KEYPOINTS_IO}[where]]
         assert all(f.is_file() for f in files)
     else:
         files = [REPO / "chip_smoke.py"]

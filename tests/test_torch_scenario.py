@@ -297,7 +297,7 @@ def test_save_solution_matches_jax_layout(tmp_path):
 @pytest.mark.parametrize("what", ["parallel_backward", "sqp",
                                   "wrong_device", "direct_transcription",
                                   "adaptive_jerk", "mesh_collision"])
-def test_unported_options_and_wrong_devices_raise(what):
+def test_unported_options_and_wrong_devices_raise(what, tmp_path):
     """Options without a port raise and name their ROADMAP item; the
     routes that the classic-task slice ported (the associative-scan
     Riccati, ``method="sqp"``, ``SolveDirectTranscription``) run on the
@@ -333,18 +333,26 @@ def test_unported_options_and_wrong_devices_raise(what):
             TranscriptionConfig(num_steps=10, num_rounds=2, inner_steps=20))
         assert x.shape == (2, 10) and np.isfinite(cost)
     elif what == "adaptive_jerk":
-        cfg = cart_pole_with_wall.Config(use_derivative_interpolation=True,
-                                         keypoint_method="adaptiveJerk")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cart_pole_with_wall.build_solver(cfg, device="cpu")
+        # the wall example's multi-start with adaptiveJerk at the JAX
+        # example's thresholds (short horizon, two starts)
+        cfg = cart_pole_with_wall.Config(
+            T=0.2, num_starts=2, max_iters=3, verbose=False,
+            use_derivative_interpolation=True, keypoint_method="adaptiveJerk")
+        assert tuple(cart_pole_with_wall.problem(cfg, "cpu")[0].derivs) == (
+            "adaptiveJerk", 1, 100, 0.0007, 5e-5, None, None)
+        res, _ = cart_pole_with_wall.solve_multistart(cfg, device="cpu")
+        assert np.isfinite(res.costs.numpy()).all()
     elif what == "mesh_collision":
         from drake_ddp_tpu_torch.contact.geometry import (ContactProps,
                                                           GeometrySet)
         from drake_ddp_tpu_torch.io.urdf import UrdfCollision, _add_collision
+        (tmp_path / "link.obj").write_text(
+            "v 0 0 0\nv 0.4 0 0\nv 0.4 0.05 0\nv 0 0.05 0.05\n")
         mesh = UrdfCollision("mesh", np.zeros(3), np.eye(3), np.ones(3),
                              "link.obj", ContactProps())
-        with pytest.raises(NotImplementedError, match="item 11"):
-            _add_collision(GeometrySet(), 0, mesh)
+        gs = GeometrySet()
+        _add_collision(gs, 0, mesh, str(tmp_path))
+        assert gs.geoms and all(g.kind == "sphere" for g in gs.geoms)
     else:
         # a multibody system on the CPU, a solver asked for another device
         system, _ = mini_cheetah.build_system(mini_cheetah.Config(),

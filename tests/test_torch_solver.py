@@ -53,7 +53,11 @@ def test_set_interval_derivatives_match_jax(minN):
 def test_set_interval_needs_a_keypoint_at_zero():
     """arange(0, N-1, minN) = [0] with its last element replaced by N-2
     leaves no keypoint at t = 0; the JAX lookup would wrap, the port
-    refuses."""
+    refuses.  An adaptiveJerk mask whose only keypoint is the forced last
+    one (a flat trajectory, maxN beyond the horizon) is the JAX package's
+    data-dependent case of the same wrap, and the port follows it: every
+    step reads the last step's Jacobian, as in JAX."""
+    from drake_ddp_tpu.solver import keypoints as jkp
     from drake_ddp_tpu_torch.solver import keypoints as tkp
 
     x, u = torch.zeros(1, 5, 3), torch.zeros(1, 4, 1)
@@ -62,11 +66,21 @@ def test_set_interval_needs_a_keypoint_at_zero():
             _analytic_jac(torch), tkp.DerivsInterpolation("setInterval",
                                                           minN=8),
             x, u, root=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tkp.compute_derivatives_batched(
-            _analytic_jac(torch), tkp.DerivsInterpolation("adaptiveJerk",
-                                                          minN=2),
-            x, u, root=True)
+    rng = np.random.default_rng(2)
+    x = np.zeros((1, 5, 3)) + rng.standard_normal(3)
+    u = rng.standard_normal((1, 4, 1))
+    cfg = ("adaptiveJerk", 2, 9)
+    got = tkp.compute_derivatives_batched(
+        _analytic_jac(torch), tkp.DerivsInterpolation(*cfg),
+        torch.as_tensor(x), torch.as_tensor(u), root=True)
+    want = jkp.compute_derivatives_batched(
+        _analytic_jac(jnp), jkp.DerivsInterpolation(*cfg), jnp.asarray(x),
+        jnp.asarray(u), root=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+    assert float(got[2][0]) == pytest.approx(25.0)
+    assert torch.equal(got[0][0, 0], got[0][0, 3])
 
 
 def _problem(rng, B, N, n, m):
