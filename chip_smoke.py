@@ -15,7 +15,18 @@ derivatives; then one entry solve each with the plain lane Jacobian
 (held to the megajac one by the loose chain pin over the batch, beside
 a noise control, with megajac checked on that solve's own Jacobian
 inputs), with the cold-Newton megajac, and with one megastep launch per
-horizon step.  Then the per-scenario path: megaroll and the cold megajac
+horizon step.  Then scenario data parallelism and playback: the
+flagship cut (an entry solve and two resolves) through ``batched_mpc``
+over ``scenario_mesh()`` against a direct ``mpc_solve_batched`` bit for
+bit, its two halves each in a host thread of its own (the multi-card
+path's threads, both on the one card) against the halves run in order,
+the same problems split over two processes on the one card under gloo
+(``--worker`` runs of this script) with their all-reduced stats, every
+lane bit for bit that of the 256-lane run,
+NCCL at world size 1 and its refusal of two ranks on one card, and the
+mini-cheetah example's ``run()`` recorded by an ``MPCStream``, its frames
+on the card against the CPU's and its HTML player written under
+``build/``.  Then the per-scenario path: megaroll and the cold megajac
 held and timed at its shapes (8 and 49 lanes, contact_iters 4), the
 pendulum and cart-pole examples through
 ``IterativeLinearQuadraticRegulator`` against the JAX package's goldens,
@@ -58,7 +69,8 @@ swing-up, and an OBJ-covered arm from URDF text on megastep.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without that line.  Needs a CUDA card; exits 2
-without one.
+without one.  ``chip_smoke.py --worker gloo|nccl <rank> <world> <port>``
+is one process of the two-process phase.
 """
 
 import json
@@ -358,7 +370,13 @@ def rollout_step_check(kd, tapes64, xs, us):
     lane-step where the plain step crossed and the kernel's error is over
     the bound but under CROSSING is a flip whose jump is smaller than the
     mark: it counts as a kernel crossing too, inside the same budget, and
-    is reported (``crossings_kernel_below_mark``)."""
+    is reported (``crossings_kernel_below_mark``).
+
+    A lane whose tapes are not finite (gains left NaN by a failed Cholesky
+    solve, a candidate the linesearch rejects) has no float64 truth from
+    there on: at every lane-step the kernel's state and input must be
+    non-finite exactly where the float64 ones are, and the finite ones
+    are held as above (``lane_steps_not_finite``)."""
     import torch
     x0, eps, u_bar, kappa, K, x_bar = tapes64
     T, n, L = xs.shape
@@ -373,24 +391,30 @@ def rollout_step_check(kd, tapes64, xs, us):
     unfold = lambda a: a.reshape(a.shape[0], T, L).permute(1, 0, 2)
     truth = unfold(kd.step(fold(prev).double(), fold(us).double()))
     plain = unfold(kd.step(fold(prev).contiguous(), fold(us).contiguous()))
-    e_k = (xs.double() - truth).abs().amax(dim=1)                 # (T, L)
-    e_p = (plain.double() - truth).abs().amax(dim=1)
+    u64 = policy(torch.float64)
+    finite = lambda a: torch.isfinite(a).all(dim=1)               # (T, L)
+    fin_x, fin_u = finite(truth), finite(u64)
+    same_finite = bool(torch.equal(finite(xs), fin_x)
+                       and torch.equal(finite(us), fin_u))
+    on = lambda fin, a: torch.where(fin, a, 0.0)
+    e_k = on(fin_x, (xs.double() - truth).abs().amax(dim=1))      # (T, L)
+    e_p = on(fin_x, (plain.double() - truth).abs().amax(dim=1))
     cross_p = e_p > CROSSING
     bound = 3.0 * torch.where(cross_p, 0.0, e_p).amax(dim=1) + 1e-5   # (T,)
     below = cross_p & (e_k <= CROSSING) & (e_k > bound[:, None])
     cross_k = (e_k > CROSSING) | below
     held = torch.where(cross_k, 0.0, e_k)
-    u64 = policy(torch.float64)
-    eu_k = (us.double() - u64).abs().amax(dim=1).amax(dim=1)      # (T,)
-    eu_p = (policy(torch.float32).double() - u64).abs().amax(dim=1).amax(1)
+    eu_k = on(fin_u, (us.double() - u64).abs().amax(dim=1)).amax(dim=1)
+    eu_p = on(fin_u, (policy(torch.float32).double() - u64).abs()
+              .amax(dim=1)).amax(dim=1)                           # (T,)
     n_k, n_p = int(cross_k.sum()), int(cross_p.sum())
     lane_k = int(cross_k.sum(dim=0).max())
     lane_p = int(cross_p.sum(dim=0).max())
-    ok = bool(torch.isfinite(xs).all() and torch.isfinite(us).all()
+    ok = bool(same_finite
               and (held <= bound[:, None]).all()
               and (eu_k <= 3.0 * eu_p + 1e-5).all()
               and n_k <= 2 * n_p + 4 and lane_k <= 2 * lane_p + 4)
-    d = (xs - plain).abs().amax(dim=1)
+    d = on(fin_x, (xs - plain).abs().amax(dim=1))
     margin = held - bound[:, None]
     t_w, l_w = divmod(int(margin.argmax()), L)
     return ok, {
@@ -399,8 +423,13 @@ def rollout_step_check(kd, tapes64, xs, us):
                      " and inputs vs float64), except lane-steps crossing a "
                      "contact-solve flip (error > 1e-4, or over the bound "
                      "where the plain crossed): at most 2 k + 4, k the "
-                     "plain's count, in all and on any one lane",
-        "lane_steps": T * L, "crossings_kernel": n_k, "crossings_plain": n_p,
+                     "plain's count, in all and on any one lane; "
+                     "non-finite exactly where the float64 step and "
+                     "policy are",
+        "lane_steps": T * L,
+        "lane_steps_not_finite": int((~fin_x).sum()),
+        "not_finite_where_float64_is": same_finite,
+        "crossings_kernel": n_k, "crossings_plain": n_p,
         "crossings_kernel_below_mark": int(below.sum()),
         "crossings_most_on_one_lane_kernel": lane_k,
         "crossings_most_on_one_lane_plain": lane_p,
@@ -990,6 +1019,380 @@ def phase_flagship(results):
     if megastep.launches == 0:
         fail("flagship_megastep", "megastep was never launched")
     results["megastep"]["launches"] = megastep.launches
+
+
+PARALLEL_SEED = 20          # the parallel phases' flagship problems
+PARALLEL_RESOLVES = 2       # an entry solve and two resolves
+WORKER_TIMEOUT_S = 300      # each worker process of parallel_two_process
+
+
+def parallel_problems(dev):
+    """The flagship's system and BATCH problems at PARALLEL_SEED on
+    ``dev``: (system, scfg, prob, mpc, shift, consec0, rescue)."""
+    import torch
+    mc, system, _ = cheetah(dev)
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    prob, scfg, mpcc, shift, rescue = mpc_setup(
+        mc, system, 50, BATCH, 8, 8, 8, dev, torch.float32, gen)
+    consec0 = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    return system, scfg, prob, mpcc(PARALLEL_RESOLVES), shift, consec0, \
+        rescue
+
+
+def lanes_record(res):
+    """Per-lane final costs and per-solve iterations (host lists)."""
+    return {"costs": res.costs[:, -1].tolist(),
+            "iterations": res.iterations.tolist()}
+
+
+def same_lanes(a, b):
+    """Whether two MPCResults give every lane the same bits (costs,
+    iterations, states)."""
+    import torch
+    return (torch.equal(a.costs, b.costs)
+            and torch.equal(a.iterations, b.iterations)
+            and torch.equal(a.states, b.states))
+
+
+def halves_of(prob):
+    """The two halves of the parallel problems (the two-process split)."""
+    halves = [slice(r * BATCH // 2, (r + 1) * BATCH // 2) for r in (0, 1)]
+    sub = lambda h: type(prob)(*(None if a is None else a[h] for a in prob))
+    return halves, sub
+
+
+def run_halves(problems, threaded):
+    """``mpc_solve_batched`` of each half of the parallel problems on the
+    card, through ``sharding._run_shards``: one after another, or each in
+    a host thread of its own (the multi-card path's threads, here both on
+    cuda:0).  Returns (the halves' results, megaroll and megajac
+    launches)."""
+    import torch
+    from drake_ddp_tpu_torch.mpc.driver import mpc_solve_batched
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.parallel import sharding
+    system, scfg, prob, mpc, shift, consec0, rescue = problems
+    halves, sub = halves_of(prob)
+    fns = [lambda h=h: mpc_solve_batched(system, scfg, sub(h), mpc, shift,
+                                         consec0=consec0[h],
+                                         rescue_u=rescue)
+           for h in halves]
+    zero_counts()
+    res = sharding._run_shards(fns, [prob.x0.device] * 2, threaded)
+    torch.cuda.synchronize()
+    return res, megaroll.launches, megajac.launches
+
+
+def phase_parallel_flagship(results):
+    """``batched_mpc`` over ``scenario_mesh()`` (one card: one shard) at
+    the flagship configuration against a direct ``mpc_solve_batched`` of
+    the same problems: per-lane costs and iterations bit for bit, the
+    BatchStats equal to that run's sums, the same launch counts.
+
+    Then the threaded multi-card path on the one card: the two halves of
+    the batch, each in a host thread of its own through
+    ``sharding._run_shards(threaded=True)`` on cuda:0 twice, against the
+    same halves run one after another: each half's lanes bit for bit and
+    the megaroll and megajac launches equal to the serial sums.  Returns
+    (the 256-lane run, the serial halves)."""
+    import torch
+    from drake_ddp_tpu_torch.mpc.driver import mpc_solve_batched
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.parallel import batched_mpc, scenario_mesh
+    dev = torch.device("cuda")
+    problems = parallel_problems(dev)
+    system, scfg, prob, mpc, shift, consec0, rescue = problems
+    out = {}
+    for route in ("direct", "parallel"):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "direct":
+            res = mpc_solve_batched(system, scfg, prob, mpc, shift,
+                                    consec0=consec0, rescue_u=rescue)
+            stats = None
+        else:
+            mesh = scenario_mesh()
+            res, stats = batched_mpc(system, scfg, prob, mpc, shift,
+                                     mesh=mesh, consec0=consec0,
+                                     rescue_u=rescue)
+        torch.cuda.synchronize()
+        out[route] = dict(res=res, stats=stats,
+                          seconds=time.perf_counter() - t0,
+                          megaroll=megaroll.launches,
+                          megajac=megajac.launches)
+    d, p = out["direct"], out["parallel"]
+    rd, rp, stats = d["res"], p["res"], p["stats"]
+    check_result(rp, 50, PARALLEL_RESOLVES, "parallel_flagship")
+    same = same_lanes(rd, rp)
+    sums = (torch.equal(stats.mean_cost, torch.sum(rd.costs[:, -1]) / BATCH)
+            and int(stats.num_diverged) == int(rd.diverged.sum())
+            and int(stats.total_iterations) == int(rd.iterations.sum()))
+    counts = (p["megaroll"] == d["megaroll"] > 0
+              and p["megajac"] == d["megajac"] > 0)
+    timed = {}
+    for threaded in (False, True):
+        t0 = time.perf_counter()
+        timed[threaded] = run_halves(problems, threaded) + (
+            time.perf_counter() - t0,)
+    serial, threads = timed[False], timed[True]
+    threads_same = all(same_lanes(a, b) for a, b in zip(serial[0],
+                                                         threads[0]))
+    threads_counts = (threads[1] == serial[1] > 0
+                      and threads[2] == serial[2] > 0)
+    ok = same and sums and counts and threads_same and threads_counts
+    emit({"phase": "parallel_flagship", "ok": ok, "shards": len(mesh),
+          "mesh": [str(m) for m in mesh], "batch": BATCH,
+          "resolves": PARALLEL_RESOLVES,
+          "per_shard_seconds": p["seconds"], "direct_seconds": d["seconds"],
+          "lanes_bit_identical": same, "stats_equal_direct_sums": sums,
+          "stats": {k: float(v) for k, v in stats._asdict().items()},
+          "megaroll_launches": [d["megaroll"], p["megaroll"]],
+          "megajac_launches": [d["megajac"], p["megajac"]],
+          "threaded_halves": {
+              "criterion": "two halves of 128, each in a host thread of "
+                           "its own on cuda:0 (sharding._run_shards, "
+                           "threaded=True), against the same halves run "
+                           "one after another: lanes bit for bit, "
+                           "megaroll and megajac launches equal",
+              "lanes_bit_identical": threads_same,
+              "megaroll_launches": [serial[1], threads[1]],
+              "megajac_launches": [serial[2], threads[2]],
+              "seconds": [serial[3], threads[3]]}})
+    if not ok:
+        fail("parallel_flagship", "batched_mpc over one card is not the "
+             "direct mpc_solve_batched run, or the threaded halves are not "
+             "the serial ones")
+    results["megaroll"]["parallel_launches"] = p["megaroll"]
+    results["megajac"]["parallel_launches"] = p["megajac"]
+    return rp, serial[0]
+
+
+def spawn_workers(mode, ranks, world, extra=()):
+    """``chip_smoke.py --worker <mode> <rank> <world> <port>`` processes,
+    one per rank, sharing a free localhost port."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--worker", mode,
+         str(r), str(world), str(port), *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(REPO)) for r in ranks]
+
+
+def collect(procs, phase):
+    """Each worker's last stdout line as JSON; every process ended."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                fail(phase, f"worker exited {p.returncode}: {err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return outs
+
+
+def phase_parallel_two_process(single, direct):
+    """Two processes on the one card under ``backend="gloo"``, each with
+    its half of the parallel_flagship problems through
+    ``process_local_problem``.  Gates: both ranks' BatchStats identical
+    and equal to the sums of the direct ``mpc_solve_batched`` runs of the
+    halves (``direct``, parallel_flagship's serial halves), whose lanes
+    the ranks repeat bit for bit; and every lane bit for bit the lane of
+    the single-process run of all 256 (``single``): each kernel and the
+    solver's per-lane arithmetic (the Riccati sweep's batched products,
+    the per-step costs) give a lane the same bits at any batch size, so a
+    scenario's answer does not move with how the batch is split.  Then
+    NCCL: ``initialize(backend="nccl")`` at world size 1 with an
+    all-reduce on the card, and two ranks on one card, which must raise
+    naming gloo."""
+    import torch
+    from drake_ddp_tpu_torch.solver.ilqr import _cost_steps
+    nccl = (spawn_workers("nccl", [0], 1)
+            + spawn_workers("nccl", [0, 1], 2))
+    nccl_out = collect(nccl, "parallel_two_process")
+    gloo = collect(spawn_workers("gloo", [0, 1], 2), "parallel_two_process")
+
+    dev = torch.device("cuda")
+    _, _, prob, _, _, _, _ = parallel_problems(dev)
+    halves, sub = halves_of(prob)
+    repeat = all(g["lanes"] == lanes_record(d) for g, d in zip(gloo, direct))
+    costs = torch.cat([d.costs[:, -1] for d in direct]).double()
+    div = sum(int(d.diverged.sum()) for d in direct)
+    its = sum(int(d.iterations.sum()) for d in direct)
+    st = gloo[0]["stats"]
+    sums = (st["num_diverged"] == div and st["total_iterations"] == its
+            and abs(st["mean_cost"] - costs.mean().item())
+            <= 1e-6 * abs(costs.mean().item()))
+    stats_same = gloo[0]["stats"] == gloo[1]["stats"]
+
+    got_it = torch.cat([d.iterations for d in direct]).long()
+    got_c = torch.cat([d.costs for d in direct]).double()
+    got_x = torch.cat([d.states for d in direct])
+    ref_it, ref_c = single.iterations.long(), single.costs.double()
+    d_it = (got_it - ref_it).abs().amax(dim=1)
+    c_rel = ((got_c - ref_c).abs() / ref_c.abs()).amax(dim=1)
+    bits = ((d_it == 0) & (c_rel == 0)
+            & (got_x == single.states).flatten(1).all(dim=1))
+    lanes_256 = bool(bits.all())
+    x_bar = prob.x0[:, None].repeat(1, 50, 1)
+    c256 = _cost_steps(prob, x_bar, prob.u_init)
+    c128 = torch.cat([_cost_steps(sub(h), x_bar[h], prob.u_init[h])
+                      for h in halves])
+    nccl_ok = (nccl_out[0].get("all_reduce_ok") is True
+               and all(o.get("raised_naming_gloo") for o in nccl_out[1:]))
+    ok = stats_same and repeat and sums and lanes_256 and nccl_ok
+    emit({"phase": "parallel_two_process", "ok": ok, "backend": "gloo",
+          "processes": 2, "local_batch": BATCH // 2,
+          "criterion": "ranks' stats identical and equal to the halves' "
+                       "direct sums; each rank's lanes bit-identical to "
+                       "the direct run of its half, and every lane "
+                       "bit-identical (costs, iterations, states) to the "
+                       "256-lane single-process run; NCCL at world 1 "
+                       "all-reduces, two NCCL ranks on one card raise "
+                       "naming gloo",
+          "stats_rank0": gloo[0]["stats"], "stats_rank1": gloo[1]["stats"],
+          "ranks_stats_identical": stats_same,
+          "stats_equal_halves_sums": sums,
+          "lanes_repeat_direct_halves": repeat,
+          "vs_single_256": {
+              "lanes_bit_identical": int(bits.sum()),
+              "lanes_outside_iterations_1_cost_15pct": int(
+                  ((d_it > 1) | (c_rel > 0.15)).sum()),
+              "lane_cost_rel_max": c_rel.max().item(),
+              "iterations_max_diff": int(d_it.max())},
+          "cost_steps_lanes_bit_identical_128_vs_256":
+              int((c128 == c256).all(dim=1).sum()),
+          "per_shard_seconds": [g["seconds"] for g in gloo],
+          "stats_all_reduce_ms": [g["all_reduce_ms"] for g in gloo],
+          "megaroll_launches": [g["megaroll"] for g in gloo],
+          "megajac_launches": [g["megajac"] for g in gloo],
+          "nccl": nccl_out})
+    if not ok:
+        fail("parallel_two_process", "ranks disagree, a rank is off the "
+             "direct run of its half, a lane is off the 256-lane run, or "
+             "the NCCL checks failed")
+
+
+def worker(mode, rank, world, port):
+    """One process of parallel_two_process; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+    from drake_ddp_tpu_torch.parallel import batched_mpc, multihost
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    addr = f"127.0.0.1:{port}"
+    if mode == "nccl":
+        try:
+            multihost.initialize(addr, world, rank, backend="nccl")
+        except ValueError as e:
+            emit({"rank": rank, "world": world,
+                  "raised_naming_gloo": "backend='gloo'" in str(e),
+                  "error": str(e)})
+            return
+        x = torch.full((3,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        emit({"rank": rank, "world": world, "backend": dist.get_backend(),
+              "all_reduce_ok": world == 1 and x.tolist() == [1.0] * 3})
+        dist.destroy_process_group()
+        return
+    multihost.initialize(addr, world, rank, backend="gloo")
+    mesh = multihost.host_device_mesh()
+    dev = mesh.local[0]
+    system, scfg, prob, mpc, shift, consec0, rescue = parallel_problems(dev)
+    half = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+    local = multihost.process_local_problem(
+        mesh, type(prob)(*(None if a is None else a[half] for a in prob)))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, stats = batched_mpc(system, scfg, local, mpc, shift, mesh=mesh,
+                             consec0=consec0[half], rescue_u=rescue)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(megaroll=megaroll.launches, megajac=megajac.launches)
+    # the stats' all-reduce alone (three host scalars under gloo)
+    t1 = time.perf_counter()
+    multihost.all_reduce_sums(*(torch.zeros((), device=dev)
+                                for _ in range(3)), 1)
+    reduce_ms = (time.perf_counter() - t1) * 1e3
+    emit({"rank": rank, "mesh_shape": list(mesh.shape), "seconds": secs,
+          "all_reduce_ms": reduce_ms, **launches,
+          "stats": {k: float(v) for k, v in stats._asdict().items()},
+          "lanes": lanes_record(res)})
+    dist.destroy_process_group()
+
+
+VIZ_HTML = REPO / "build" / "chip_smoke_viz.html"
+VIZ_FIELDS = ("centers", "radii", "dt", "rate", "fpoints", "forces",
+              "fscale", "fmin")   # the player's DATA with force arrows
+
+
+def phase_viz():
+    """The mini-cheetah example's run() at Config() with an MPCStream:
+    every solve recorded; scene_frames and contact_force_frames of the
+    executed trajectory on the card against the same calls on the CPU
+    (centers and points within 1e-5, forces within 1e-3 relative on the
+    active contacts); the HTML player with force arrows written under
+    build/ and its DATA parsed back with the JAX player's fields."""
+    import numpy as np
+    from drake_ddp_tpu_torch.examples import mini_cheetah as mc
+    from drake_ddp_tpu_torch.viz import (MPCStream, contact_force_frames,
+                                         export_html, scene_frames)
+    cfg = mc.Config(verbose=False)
+    system, model = mc.build_system(cfg, device="cuda")
+    contact = system.params[1]
+    stream, sols = MPCStream(replan_steps=cfg.replan_steps), []
+    t0 = time.perf_counter()
+    mc.run(cfg, device="cuda", on_solve=sols.append, stream=stream)
+    run_s = time.perf_counter() - t0
+    states = stream.executed(37)
+    t1 = time.perf_counter()
+    card = (scene_frames(model, contact, states),
+            contact_force_frames(model, contact, states, cfg.dt))
+    card_s = time.perf_counter() - t1
+    host = (scene_frames(model, contact, states, device="cpu"),
+            contact_force_frames(model, contact, states, cfg.dt,
+                                 device="cpu"))
+    e_c = np.abs(card[0]["centers"] - host[0]["centers"]).max()
+    e_p = np.abs(card[1]["points"] - host[1]["points"]).max()
+    mag = np.linalg.norm(host[1]["forces"], axis=2)
+    active = mag > 1e-3 * mag.max()
+    e_f = (np.linalg.norm(card[1]["forces"] - host[1]["forces"], axis=2)
+           [active] / mag[active]).max()
+    VIZ_HTML.parent.mkdir(exist_ok=True)
+    export_html(str(VIZ_HTML), model, contact, states, cfg.dt,
+                show_forces=True)
+    html = VIZ_HTML.read_text()
+    start = html.index("const DATA = ") + len("const DATA = ")
+    data = json.loads(html[start:html.index(";\n", start)])
+    stream_html = stream.export_html(str(VIZ_HTML.with_name(
+        "chip_smoke_stream.html")), model, contact, cfg.dt)
+    recorded = len(stream.resolves) == len(sols) == 1 + cfg.num_resolves
+    fields = sorted(data) == sorted(VIZ_FIELDS) and len(
+        data["centers"]) == states.shape[0]
+    ok = (recorded and fields and e_c <= 1e-5 and e_p <= 1e-5
+          and e_f <= 1e-3 and int(active.sum()) > 0)
+    emit({"phase": "viz", "ok": ok, "solves": len(sols),
+          "resolves_recorded": len(stream.resolves),
+          "frames": states.shape[0], "run_seconds": run_s,
+          "card_frames_seconds": card_s,
+          "centers_max_diff": float(e_c), "points_max_diff": float(e_p),
+          "forces_max_rel_active": float(e_f),
+          "active_contacts": int(active.sum()), "html": str(VIZ_HTML),
+          "html_bytes": len(html), "data_fields": sorted(data),
+          "stream_html_bytes": Path(stream_html).stat().st_size})
+    if not ok:
+        fail("viz", "a resolve went unrecorded, the card's frames are off "
+             "the CPU's, or the player's data is malformed")
 
 
 SCENARIO_ROLL_LANES = 8     # ls_parallel 8 candidates of one scenario
@@ -2765,6 +3168,14 @@ def phase_model_files(results):
 
 
 def main():
+    if sys.argv[1:2] == ["--worker"]:
+        # one process of parallel_two_process: chip_smoke.py --worker
+        # <gloo|nccl> <rank> <world> <port>
+        sys.path.insert(0, str(REPO))
+        import drake_ddp_tpu_torch  # noqa: F401
+        mode, rank, world, port = sys.argv[2:6]
+        worker(mode, int(rank), int(world), port)
+        return
     try:
         import torch
     except ImportError:
@@ -2799,6 +3210,9 @@ def main():
     phase_megajac_team(results, logs)
     phase_small_chain()
     phase_flagship(results)
+    single, halves = phase_parallel_flagship(results)
+    phase_parallel_two_process(single, halves)
+    phase_viz()
     phase_scenario_kernels(results)
     phase_scenario_analytic()
     phase_scenario_cheetah(results)

@@ -13,7 +13,9 @@ surface is :class:`IterativeLinearQuadraticRegulator` (and
 :func:`solve_ilqr` under it, :func:`mpc_solve`,
 :func:`multistart_ilqr` and the direct-transcription baseline
 :func:`solve_transcription`); the batched one is
-:func:`mpc_solve_batched` and :func:`solve_ilqr_batched`.
+:func:`mpc_solve_batched` and :func:`solve_ilqr_batched`, and over a
+mesh of cards and processes :func:`batched_mpc` and :func:`batched_solve`
+(:mod:`~drake_ddp_tpu_torch.parallel`).
 """
 
 import torch
@@ -32,6 +34,11 @@ from drake_ddp_tpu_torch.mpc.driver import (  # noqa: E402
     MPCConfig,
     mpc_solve,
     mpc_solve_batched,
+)
+from drake_ddp_tpu_torch.parallel import (  # noqa: E402
+    batched_mpc,
+    batched_solve,
+    scenario_mesh,
 )
 from drake_ddp_tpu_torch.solver.api import (  # noqa: E402
     IterativeLinearQuadraticRegulator,
@@ -66,6 +73,9 @@ __all__ = [
     "MPCConfig",
     "mpc_solve",
     "mpc_solve_batched",
+    "batched_mpc",
+    "batched_solve",
+    "scenario_mesh",
     "solve_ilqr_batched",
     "multistart_ilqr",
     "TranscriptionConfig",

@@ -17,3 +17,10 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device (a CUDA device without an
+    index matches any card)."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)

@@ -118,10 +118,10 @@ def solve(ilqr, save_file: Optional[str] = None, on_solve=None):
     return x, u, solve_time, cost
 
 
-def passive(system, x0, steps: int, device):
+def passive(system, x0, steps: int, device, html_out: Optional[str] = None):
     """States (n, steps) of the plant from x0 with zero torques, one
     megastep launch a step on the card (the plain lane step on the
-    CPU)."""
+    CPU); with ``html_out`` also the HTML player of the roll."""
     from drake_ddp_tpu_torch.ops.megastep import megastep_for_system
     step = megastep_for_system(system)
     x = torch.as_tensor(x0, dtype=torch.float32, device=device)[:, None]
@@ -130,4 +130,10 @@ def passive(system, x0, steps: int, device):
     for _ in range(steps):
         x = step(x.contiguous(), u)
         xs.append(x[:, 0])
-    return torch.stack(xs, dim=1).cpu().numpy()
+    states = torch.stack(xs, dim=1).cpu().numpy()
+    if html_out is not None:
+        from drake_ddp_tpu_torch.viz import export_html
+        model, contact = system.params
+        export_html(html_out, model, contact, states, system.dt,
+                    device=device)
+    return states

@@ -14,6 +14,9 @@ corners instead).
 :func:`run` solves through
 :class:`~drake_ddp_tpu_torch.solver.api.IterativeLinearQuadraticRegulator`
 (megaroll rollouts and cold-Newton megajac derivatives on the card).
+:func:`simulate` rolls the plant out passively and :func:`playback`
+replays a saved solution, each optionally into the HTML player
+(:mod:`~drake_ddp_tpu_torch.viz`).
 Derivative interpolation (``use_derivative_interpolation``):
 setInterval, adaptiveJerk or iterativeError, with the JAX example's
 thresholds.
@@ -146,14 +149,32 @@ def run(cfg: Config = Config(), save_file: Optional[str] = None,
 
 
 def simulate(cfg: Config = Config(), sim_time: Optional[float] = None,
-             device="cuda"):
+             device="cuda", html_out: Optional[str] = None):
     """Passive (zero-torque) simulation from the scenario's initial state:
-    states (n, T / dt).  The HTML player of the JAX package (``viz/``) is
-    not ported yet (ROADMAP Queue 1, item 16)."""
+    states (n, T / dt); optionally writes the HTML player to
+    ``html_out``."""
     system, _ = build_system(cfg, device=device)
     x0, _ = scenario_states(cfg)
     steps = int((cfg.T if sim_time is None else sim_time) / cfg.dt)
-    return _arm.passive(system, x0, steps, device)
+    return _arm.passive(system, x0, steps, device, html_out)
+
+
+def playback(save_file: str, cfg: Config = Config(),
+             html_out: Optional[str] = None, device="cuda"):
+    """Replay a saved solution (:meth:`~drake_ddp_tpu_torch.solver.api.
+    IterativeLinearQuadraticRegulator.SaveSolution`) without
+    re-optimizing: returns (t, x_bar), and with ``html_out`` writes the
+    HTML player at the reference's playback rate of 0.125."""
+    from drake_ddp_tpu_torch.io.solution import load_solution
+
+    sol = load_solution(save_file)
+    if html_out is not None:
+        from drake_ddp_tpu_torch.viz import export_html
+
+        system, model = build_system(cfg, device=device)
+        export_html(html_out, model, system.params[1], sol["x_bar"],
+                    cfg.dt, playback_rate=0.125, device=device)
+    return sol["t"], sol["x_bar"]
 
 
 if __name__ == "__main__":

@@ -17,6 +17,8 @@ mpc_solve_batched`.  Derivative interpolation (``Config``'s
 iterativeError, with the JAX example's thresholds.
 
     python -m drake_ddp_tpu_torch.examples.mini_cheetah     # on the card
+    python -m drake_ddp_tpu_torch.examples.mini_cheetah --live
+        # also rewrites build/cheetah_live.html after every solve
 """
 
 from __future__ import annotations
@@ -166,13 +168,18 @@ def build_solver(cfg: Config = Config(), device="cuda",
 
 
 def run(cfg: Config = Config(), device="cuda",
-        deriv_kernel: Optional[str] = None, timer=None, on_solve=None):
+        deriv_kernel: Optional[str] = None, timer=None, on_solve=None,
+        stream=None):
     """Initial solve + ``num_resolves`` MPC resolves; returns the
     stitched state history (37, N + replan_steps * num_resolves), the
     last control tape, the wall seconds and the last cost.
 
     ``on_solve``: optional callable that gets each solve's
-    :class:`~drake_ddp_tpu_torch.solver.ilqr.ILQRSolution` (numpy)."""
+    :class:`~drake_ddp_tpu_torch.solver.ilqr.ILQRSolution` (numpy).
+    ``stream``: optional :class:`~drake_ddp_tpu_torch.viz.MPCStream` that
+    records every solve's predicted trajectory for the ghost-overlay
+    player (the reference publishes each resolve to its live
+    visualizer)."""
     ilqr, x0, x_nom = build_solver(cfg, device, deriv_kernel, timer)
     num_steps = int(cfg.T / cfg.dt)
     rs = cfg.replan_steps
@@ -183,6 +190,8 @@ def run(cfg: Config = Config(), device="cuda",
         out = ilqr.Solve()
         if on_solve is not None:
             on_solve(ilqr._solution)
+        if stream is not None:
+            stream.record(out[0])
         return out
 
     st = time.time()
@@ -211,4 +220,24 @@ def run(cfg: Config = Config(), device="cuda",
 
 
 if __name__ == "__main__":
-    run()
+    import sys
+
+    if "--live" in sys.argv:
+        # live per-resolve viewing: open build/cheetah_live.html in a
+        # browser while this runs; it reloads itself every 2 s
+        from pathlib import Path
+
+        from drake_ddp_tpu_torch.viz import MPCStream
+
+        _live = Path(__file__).resolve().parents[2] / "build"
+        _live.mkdir(exist_ok=True)
+        _cfg = Config()
+        _system, _model = build_system(_cfg)
+        _stream = MPCStream(replan_steps=_cfg.replan_steps,
+                            live_path=str(_live / "cheetah_live.html"),
+                            model=_model, contact=_system.params[1],
+                            dt=_cfg.dt)
+        run(_cfg, stream=_stream)
+        print(f"live player: {_live / 'cheetah_live.html'}")
+    else:
+        run()

@@ -11,6 +11,8 @@ contacts (35 sphere-ground, 34 arm-ball sphere-sphere).
 :func:`run` solves through
 :class:`~drake_ddp_tpu_torch.solver.api.IterativeLinearQuadraticRegulator`
 (megaroll rollouts and cold-Newton megajac derivatives on the card).
+:func:`simulate` rolls the plant out passively, optionally into the HTML
+player (:mod:`~drake_ddp_tpu_torch.viz`).
 
     python -m drake_ddp_tpu_torch.examples.panda_fr3     # on the card
 """
@@ -109,14 +111,14 @@ def run(cfg: Config = Config(), save_file: Optional[str] = None,
 
 
 def simulate(cfg: Config = Config(), sim_time: Optional[float] = None,
-             device="cuda"):
+             device="cuda", html_out: Optional[str] = None):
     """Passive (zero-torque) simulation from the scenario's initial state:
-    states (n, T / dt).  The HTML player of the JAX package (``viz/``) is
-    not ported yet (ROADMAP Queue 1, item 16)."""
+    states (n, T / dt); optionally writes the HTML player to
+    ``html_out``."""
     system, _ = build_system(cfg, device=device)
     x0, _ = scenario_states(cfg)
     steps = int((cfg.T if sim_time is None else sim_time) / cfg.dt)
-    return _arm.passive(system, x0, steps, device)
+    return _arm.passive(system, x0, steps, device, html_out)
 
 
 if __name__ == "__main__":

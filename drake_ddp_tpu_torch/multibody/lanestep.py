@@ -716,15 +716,22 @@ def _contact_forces_implicit_T(phi, normal, v_rel, K, d, mu, dt, params,
     return f, D
 
 
+def sphere_centers_T(R, p, sph_body, sph_offset):
+    """World centers (ns, 3, B) of body-attached spheres from the body
+    poses R (nb, 3, 3, B), p (nb, 3, B): sph_body (ns,) long, sph_offset
+    (ns, 3) in the body frame."""
+    Rb, pb = R[sph_body], p[sph_body]                    # (ns, 3, 3, B)
+    return pb + sum(Rb[:, :, j] * sph_offset[:, j][:, None, None]
+                    for j in range(3))
+
+
 def _contact_primal_T(model, C: LaneConsts, contact: ContactModel, kinT):
     """Sphere centers -> narrowphase -> contact Jacobians.  Returns
     (phi, normal, point, body_a, body_b, K, d, mu, K1, Jc)."""
     R, p = kinT[0], kinT[1]
     B = p.shape[-1]
     if contact.sph_body:
-        Rb, pb = R[C.sph_body], p[C.sph_body]            # (ns, 3, 3, B)
-        centers = pb + sum(Rb[:, :, j] * C.sph_offset[:, j][:, None, None]
-                           for j in range(3))            # (ns, 3, B)
+        centers = sphere_centers_T(R, p, C.sph_body, C.sph_offset)
     else:
         centers = p.new_zeros((0, 3, B))
     box_R_w, box_p_w = [], []

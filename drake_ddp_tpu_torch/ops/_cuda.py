@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple, Union
 
@@ -54,6 +55,10 @@ SIZE_QUERIES = {"ddp_table_bytes": [], "ddp_scratch_per_lane": [_I] * 7,
 Spec = Union[str, Tuple[str, int]]
 
 _LIBS: Dict[Tuple[str, Optional[int]], ctypes.CDLL] = {}
+# the threads of a multi-card scenario mesh (parallel/sharding.py) load
+# libraries and count launches at once
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -127,14 +132,22 @@ def load(name: str, team: Optional[int] = None) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (with team size ``team``, if
     given), built first if needed."""
     key = (name, team)
-    if key not in _LIBS:
-        spec = name if team is None else key
-        path = _lib_path(spec)
-        if not path.exists():
-            build([spec])
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in {**SIZE_QUERIES, **ENTRY_POINTS[name]}.items():
-            getattr(lib, fn).restype = _I
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[key] = lib
-    return _LIBS[key]
+    with _LOAD_LOCK:
+        if key not in _LIBS:
+            spec = name if team is None else key
+            path = _lib_path(spec)
+            if not path.exists():
+                build([spec])
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in {**SIZE_QUERIES,
+                                 **ENTRY_POINTS[name]}.items():
+                getattr(lib, fn).restype = _I
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[key] = lib
+        return _LIBS[key]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -122,7 +122,7 @@ def megajac(kd: StepKernelData, x: torch.Tensor, u: torch.Tensor,
         raise ValueError("megajac needs the implicit contact step "
                          "(contact_iters >= 1)")
     fx, fu, _ = _launch(_cuda.load("megajac"), kd, x, u, x_next)
-    megajac.launches += 1
+    _cuda.count_launch(megajac)
     return fx, fu
 
 

@@ -125,7 +125,7 @@ def megaroll(kd: StepKernelData, x0, eps, u_bar, kappa, K, x_bar):
             raise ValueError(f"{name} has {t.shape[-1]} lanes, x0 has {L}")
     xs, us = _launch(_cuda.load("megaroll"), kd, x0, eps, u_bar, kappa, K,
                      x_bar)
-    megaroll.launches += 1
+    _cuda.count_launch(megaroll)
     return xs, us
 
 

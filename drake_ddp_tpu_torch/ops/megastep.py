@@ -97,7 +97,7 @@ def megastep(kd: StepKernelData, x: torch.Tensor,
                              out.data_ptr(), L, per_lane, stream)
     if rc != 0:
         raise RuntimeError(f"megastep launch failed: CUDA error {rc}")
-    megastep.launches += 1
+    _cuda.count_launch(megastep)
     return out
 
 

@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from drake_ddp_tpu_torch._device import resolve_device
+from drake_ddp_tpu_torch._device import resolve_device, same_device
 from drake_ddp_tpu_torch.dynamics.base import DiscreteSystem
 from drake_ddp_tpu_torch.multibody.plant import is_multibody
 from drake_ddp_tpu_torch.solver import keypoints as kp
@@ -37,11 +37,6 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     solve_ilqr,
 )
 from drake_ddp_tpu_torch.utils.timing import PhaseTimer
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    return a.type == b.type and (a.index is None or b.index is None
-                                 or a.index == b.index)
 
 
 def _to_numpy(sol: ILQRSolution) -> ILQRSolution:
@@ -80,7 +75,7 @@ class IterativeLinearQuadraticRegulator:
         timer: Optional[PhaseTimer] = None,
     ):
         self.device = resolve_device(device)
-        if is_multibody(system) and not _same_device(
+        if is_multibody(system) and not same_device(
                 system.params[0].device, self.device):
             raise ValueError(
                 f"the multibody system lives on {system.params[0].device}, "

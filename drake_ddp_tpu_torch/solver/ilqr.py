@@ -135,13 +135,31 @@ def _cost_steps(prob: ILQRProblem, x: torch.Tensor,
     N-1, for x (..., B, N, n), u (..., B, N-1, m); leading axes in front
     of B broadcast (the linesearch's candidate axis).  The linesearch
     sums per-step cost *differences*: in f32 the difference of two large
-    cost sums loses the small improvements of late backtracking steps."""
+    cost sums loses the small improvements of late backtracking steps.
+
+    The quadratic forms are elementwise products summed one axis at a
+    time, so a lane's cost has the same bits at any batch size: a batched
+    einsum's contraction order follows the batch, and a float32 chain
+    amplifies a flipped linesearch acceptance (a scenario's answer would
+    move with how its batch is sharded)."""
+    quad = lambda a, M, b: (a[..., :, None] * M * b[..., None, :]).sum(
+        -1).sum(-1)
     dx = x[..., :-1, :] - prob.x_nom[:, None]
-    running = (torch.einsum("...bti,bij,...btj->...bt", dx, prob.Q, dx)
-               + torch.einsum("...bti,bij,...btj->...bt", u, prob.R, u))
+    running = (quad(dx, prob.Q[:, None], dx)
+               + quad(u, prob.R[:, None], u))
     dxf = x[..., -1, :] - prob.x_nom
-    terminal = torch.einsum("...bi,bij,...bj->...b", dxf, prob.Qf, dxf)
+    terminal = quad(dxf, prob.Qf, dxf)
     return torch.cat([running, terminal[..., None]], dim=-1)
+
+
+def _lane_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``A @ v`` over a batch (A (..., r, k), v (..., k)) as elementwise
+    products summed over the last axis, so a lane gets the same bits in
+    any batch.  A batched matrix-vector product on the card picks its
+    kernel, and with it the summation order, by the batch count: a lane's
+    feed-forward terms moved when its batch of 256 was split in two, and a
+    float32 chain amplifies that into another answer for the scenario."""
+    return (A * v[..., None, :]).sum(-1)
 
 
 def _backward_pass(cfg: ILQRConfig, prob: ILQRProblem, x_bar, u_bar, fx, fu,
@@ -153,12 +171,17 @@ def _backward_pass(cfg: ILQRConfig, prob: ILQRProblem, x_bar, u_bar, fx, fu,
     Gauss-Newton iLQR update equations with a Cholesky gain solve and a
     Tikhonov term on Quu.  Full float32 on the card (TF32 is off, see the
     package ``__init__``): reduced-precision products compound over the
-    value recursion and can overflow on stiff linearizations."""
+    value recursion and can overflow on stiff linearizations.  The
+    matrix-vector products are :func:`_lane_mv`'s; with them a lane gets
+    the same bits in a batch of 256 as in either half of it on an H100
+    (the batched matrix products' kernels did not change between those
+    batch counts), so a sharded batch solves each scenario as the whole
+    batch does."""
     N = x_bar.shape[1]
     m = u_bar.shape[-1]
     x_nom, Q, R, Qf = prob.x_nom, prob.Q, prob.R, prob.Qf
     tr = lambda a: a.transpose(-1, -2)
-    mv = lambda A, v: (A @ v[..., None])[..., 0]
+    mv = _lane_mv
 
     Vx = 2.0 * mv(Qf, x_bar[:, -1] - x_nom)
     Vxx = 2.0 * Qf
@@ -188,21 +211,24 @@ def _backward_pass(cfg: ILQRConfig, prob: ILQRProblem, x_bar, u_bar, fx, fu,
             torch.stack(dVs, dim=1))
 
 
-def scenario_routes(system, deriv_kernel: Optional[str] = None) -> dict:
+def scenario_routes(system, deriv_kernel: Optional[str] = None,
+                    root_seed: Optional[bool] = None) -> dict:
     """The kernels of a per-scenario solve, by the system: a multibody
     system rolls out on megaroll (``rollout_kernel="fused"``) and
     differentiates with the cold-Newton megajac (``"megajac"``, the IFT
     at the step's own Newton root, as ``jax.jacfwd`` of the JAX
     per-scenario step gives); a system without kernel data, such as an
     analytic one, runs its own lane step and lane Jacobian (``"plain"``,
-    ``"lane"``).  ``deriv_kernel`` names the Jacobian route instead.
-    Keyword arguments of :func:`~drake_ddp_tpu_torch.solver.batched.
-    solve_ilqr_batched`."""
+    ``"lane"``).  ``deriv_kernel`` names the Jacobian route instead;
+    ``root_seed`` True linearizes at the rollout's own next states (the
+    root-seeded Jacobian), False runs the Jacobian's own Newton, None
+    takes the system's route.  Keyword arguments of
+    :func:`~drake_ddp_tpu_torch.solver.batched.solve_ilqr_batched`."""
     multibody = is_multibody(system)
     return dict(rollout_kernel="fused" if multibody else "plain",
                 deriv_kernel=deriv_kernel or ("megajac" if multibody
                                               else "lane"),
-                root_seed=False)
+                root_seed=False if root_seed is None else bool(root_seed))
 
 
 def unbatch(sol, i=0):

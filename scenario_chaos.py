@@ -22,7 +22,13 @@ checks, ``met``):
 - ``lane_f64_noise_1e-7``, ``lane_f64_noise_1e-6``: that with relative
   noise of that size on every entry, seeded by ``--seed`` (13);
 - ``default_noise_1e-7`` to ``default_noise_1e-3``, ``lane_f32_noise_1e-7``:
-  the default route, or the plain float32 one, with such noise.
+  the default route, or the plain float32 one, with such noise;
+- ``megajac_root``: the root-seeded megajac, linearized at megaroll's own
+  next states (``root_seed=True``), and ``megajac_root_noise_1e-7``;
+- ``lane_f32_root_f64``: the plain float32 root-seeded lane Jacobian at
+  the float64 step's roots (the plain lane step in float64 from the
+  float32 inputs, megajac's own Newton precision), and its
+  ``_noise_1e-7`` draws.
 
 With ``--draws K`` a noise route runs K times, seeded ``--seed`` to
 ``--seed`` + K - 1, and a summary line follows its runs (for an arm the
@@ -44,7 +50,10 @@ from pathlib import Path
 ROUTES = ("default", "lane_f32", "lane_f64", "lane_f64_noise_1e-7",
           "lane_f64_noise_1e-6", "default_noise_1e-7", "default_noise_1e-6",
           "lane_f32_noise_1e-7", "default_noise_1e-5", "default_noise_1e-4",
-          "default_noise_1e-3")
+          "default_noise_1e-3", "megajac_root", "megajac_root_noise_1e-7",
+          "lane_f32_root_f64", "lane_f32_root_f64_noise_1e-7")
+# routes on the root-seeded Jacobian, at the rollout's own next states
+ROOT_ROUTES = ("megajac_root", "lane_f32_root_f64")
 ROLLOUTS = ("fused", "megastep", "plain")
 EXAMPLES = ("mini_cheetah", "panda_fr3", "kinova_gen3")
 
@@ -53,33 +62,40 @@ DY = {"panda_fr3": 0.09, "kinova_gen3": 0.10}   # the goldens' ball checks
 
 
 def wrapped(system, route, device, seed=13):
-    """``system`` with the lane Jacobian that ``route`` names."""
+    """``system`` with the lane Jacobian that ``route`` names (the
+    root-seeded one for a ``ROOT_ROUTES`` route)."""
     import torch
     from drake_ddp_tpu_torch.ops.megajac import megajac_for_system
     base, _, noise = route.partition("_noise_")
+    root = base in ROOT_ROUTES
     if base == "lane_f64":
         lane = system.lane_jac_fn
         jac = lambda x, u: tuple(J.float()
                                  for J in lane(x.double(), u.double()))
+    elif base == "lane_f32_root_f64":
+        lane_root, step = system.lane_jac_root_fn, system.lane_step_fn
+        jac = lambda x, u, x_next: lane_root(
+            x, u, step(x.double(), u.double()).float())
     elif base == "lane_f32" and noise:
         jac = system.lane_jac_fn
     elif noise:
-        jac = megajac_for_system(system, root_seed=False)
+        jac = megajac_for_system(system, root_seed=root)
     else:
         return system
     if noise:
         gen = torch.Generator(device=device).manual_seed(seed)
         clean, rel = jac, float(noise)
-        jac = lambda x, u: tuple(J * (1 + rel * torch.randn(
+        jac = lambda *a: tuple(J * (1 + rel * torch.randn(
             J.shape, generator=gen, device=J.device, dtype=J.dtype))
-            for J in clean(x, u))
-    return dataclasses.replace(system, lane_jac_fn=jac)
+            for J in clean(*a))
+    field = "lane_jac_root_fn" if root else "lane_jac_fn"
+    return dataclasses.replace(system, **{field: jac})
 
 
 def run_route(route, device, example="mini_cheetah", seed=13,
               rollout="fused"):
     import importlib
-    from drake_ddp_tpu_torch.solver import batched
+    from drake_ddp_tpu_torch.solver import batched, ilqr
     ex = importlib.import_module(f"drake_ddp_tpu_torch.examples.{example}")
     build, sols = ex.build_system, []
     ex.build_system = lambda cfg, device: (
@@ -88,15 +104,21 @@ def run_route(route, device, example="mini_cheetah", seed=13,
     rollout_for = batched._rollout_for
     batched._rollout_for = lambda system, kernel: rollout_for(
         system, rollout if kernel == "fused" else kernel)
+    routes = ilqr.scenario_routes
+    if route.partition("_noise_")[0] in ROOT_ROUTES:
+        ilqr.scenario_routes = lambda system, deriv_kernel=None: routes(
+            system, deriv_kernel, root_seed=True)
     try:
         t0 = time.perf_counter()
         states, _, _, _ = ex.run(
             ex.Config(verbose=False), device=device,
-            deriv_kernel=None if route == "default" else "lane",
+            deriv_kernel=(None if route in ("default", "megajac_root")
+                          else "lane"),
             on_solve=sols.append)
         secs = time.perf_counter() - t0
     finally:
         ex.build_system, batched._rollout_for = build, rollout_for
+        ilqr.scenario_routes = routes
     out = {"route": route, "rollout": rollout, "device": device,
            "example": example,
            "iterations": [int(s.iterations) for s in sols],
