@@ -41,8 +41,10 @@ at their ``Config()`` (side task, N 50, 69 and 127 contacts:
 sphere-ground, arm-ball sphere-sphere, pad-ball sphere-box, pad-ground
 box face) on megaroll and the cold megajac, every Jacobian call held to
 the plain float64 one, the Kinova run held to the JAX goldens' ball
-checks (the Panda's printed: its run stops short, PERF.md) and a run of
-each on the plain float32 Jacobian held to them; and each kernel held
+checks (the Panda's printed: the task's margin decides it, PERF.md) and a
+run of each on the plain float32 Jacobian held to them, the Panda's
+default route under 40 seeded Jacobian-noise draws with the count that
+meets the checks printed; and each kernel held
 and timed on the Panda, the Kinova with its pads as box-face quadrature
 (141 contacts) and a small model with sphere-world pairs.  Then the
 classic tasks: the cart-pole wall's ``run()`` at its ``Config()`` (8
@@ -65,8 +67,11 @@ setInterval-8 (launches per derivative call or bisection level, lanes
 per mask, the Kinova's task); a cut of the flagship with adaptiveJerk
 beside setInterval-8; the cart-pole from ``cart_pole.sdf`` with no
 contact model on megastep, megaroll and the cold megajac and its
-swing-up, and an OBJ-covered arm from URDF text on megastep.
-Every phase prints one JSON line; the line before the last lists the
+swing-up, and an OBJ-covered arm from URDF text on megastep.  Last, the
+mini-cheetah's ``run()`` with every solve through ``SolveProfiled``
+(per-iteration phase times against a CUDA-event bracket of the rounds)
+and a ``utils.profiling.trace`` of a solve that must show megaroll and
+megajac.  Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without that line.  Needs a CUDA card; exits 2
 without one.  ``chip_smoke.py --worker gloo|nccl <rank> <world> <port>``
@@ -1475,9 +1480,10 @@ GOLDEN = {"pendulum": 0.2400494, "cart_pole": 54.18781}   # the JAX goldens
 def phase_scenario_analytic():
     """The pendulum and cart-pole examples through the class API on the
     card (their plain lane step and autodiff lane Jacobian on CUDA
-    tensors; SolveProfiled, so with each phase's CUDA-event time): cost
-    within 1% of the JAX package's goldens and the swing-up reached
-    (pendulum angle within 0.01 of pi, cart-pole 0.05)."""
+    tensors; SolveProfiled, so with each phase's CUDA-event seconds over
+    the solve): cost within 1% of the JAX package's goldens and the
+    swing-up reached (pendulum angle within 0.01 of pi, cart-pole
+    0.05)."""
     import torch
     from drake_ddp_tpu_torch.examples import cart_pole, pendulum
     from drake_ddp_tpu_torch.solver.batched import any_lane
@@ -1487,7 +1493,7 @@ def phase_scenario_analytic():
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x, _, _, cost, phase_ms = ilqr.SolveProfiled()
+        x, _, _, cost, times = ilqr.SolveProfiled()
         secs = time.perf_counter() - t0
         sol = ilqr._solution
         rel = abs(cost - GOLDEN[name]) / GOLDEN[name]
@@ -1496,12 +1502,141 @@ def phase_scenario_analytic():
               "cost": cost, "golden": GOLDEN[name], "cost_rel": rel,
               "final_angle": float(x[row, -1]),
               "iterations": int(sol.iterations), "seconds": secs,
-              "phase_ms": phase_ms, "host_syncs": any_lane.syncs})
+              "phase_s": times.totals(), "host_syncs": any_lane.syncs})
         if not ok:
             fail("scenario_analytic", f"{name} misses its golden")
 
 
 SCENARIO_NOISE_REL = 1e-6   # the noise control's relative Jacobian noise
+PROFILE_PIN = 0.02          # per-round phase sums against the rounds' bracket
+TRACE_DIR = REPO / "build" / "chip_smoke_trace"
+TRACE_ITERS = 2             # iterations of the traced solve
+
+
+def phase_profile():
+    """The per-iteration phase-timed solve: the mini-cheetah example's
+    run() at Config() (a solve and a resolve) with every solve through
+    IterativeLinearQuadraticRegulator.SolveProfiled, on megaroll and the
+    cold megajac.  Each solve's PhaseTimes (forward = the round's
+    linesearch, derivs, backward = the Riccati sweep; CUDA events read
+    after the solve) summed over its rounds must lie within PROFILE_PIN
+    of one CUDA-event bracket around its rounds (an event where the first
+    round's linesearch starts, one where the last round's Riccati sweep
+    ends, recorded by this phase's own timer), with one record per round;
+    the tables are printed.  Megaroll must launch once a linesearch chunk
+    and megajac once a fresh derivative round.  Then utils.profiling.trace
+    around one more solve (the entry solve cut to TRACE_ITERS iterations)
+    writes a Chrome trace whose CUDA kernel events must name megaroll and
+    megajac."""
+    import collections
+    import contextlib
+    import torch
+    from drake_ddp_tpu_torch.examples import mini_cheetah
+    from drake_ddp_tpu_torch.ops.megajac import megajac
+    from drake_ddp_tpu_torch.ops.megaroll import megaroll
+    from drake_ddp_tpu_torch.solver.api import \
+        IterativeLinearQuadraticRegulator as API
+    from drake_ddp_tpu_torch.solver.profile import format_phase_table
+    from drake_ddp_tpu_torch.utils.profiling import trace
+
+    class Bracket:
+        """The solver's phases counted, and a CUDA event where a solve's
+        first round starts and one where each round ends (the last one
+        closes the bracket); nothing else, so that it adds little host
+        time between the phases."""
+
+        def __init__(self):
+            self.counts, self.ends = collections.Counter(), None
+
+        @contextlib.contextmanager
+        def phase(self, name):
+            self.counts[name] += 1
+            if name == "linesearch" and self.ends is None:
+                self.ends = [self._event()]
+            yield
+            if name == "riccati":
+                self.ends[1:] = [self._event()]
+
+        @staticmethod
+        def _event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+    bracket, solves, solve = Bracket(), [], API.Solve
+
+    def solve_profiled(self):
+        bracket.ends = None
+        *out, times = self.SolveProfiled()
+        solves.append((self._solution, times, bracket.ends))
+        return tuple(out)
+
+    API.Solve = solve_profiled
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mini_cheetah.run(mini_cheetah.Config(verbose=False), device="cuda",
+                         timer=bracket)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(megaroll=megaroll.launches, megajac=megajac.launches)
+    finally:
+        API.Solve = solve
+    rows, summed, bracketed = [], 0.0, 0.0
+    for sol, times, (first, last) in solves:
+        print(format_phase_table(sol, times))
+        total = sum(times.totals().values())
+        span = first.elapsed_time(last) / 1e3
+        summed, bracketed = summed + total, bracketed + span
+        rows.append(dict(iterations=int(sol.iterations),
+                         records=len(times.forward), phase_s=times.totals(),
+                         rounds_sum_s=total, bracket_s=span,
+                         rel=(total - span) / span,
+                         forward_s=times.forward, derivs_s=times.derivs,
+                         backward_s=times.backward))
+    rel = (summed - bracketed) / bracketed
+    counts = bracket.counts
+    ok = bool(abs(rel) <= PROFILE_PIN
+              and all(r["records"] == r["iterations"] > 0 for r in rows)
+              and launches["megaroll"] == counts["rollout"] > 0
+              and launches["megajac"] == counts["jac"] > 0)
+
+    # the trace: the same solve cut to TRACE_ITERS iterations (a trace
+    # records every operator, and the file grows with them)
+    ilqr, _, _ = mini_cheetah.build_solver(
+        mini_cheetah.Config(verbose=False), device="cuda")
+    ilqr.config = ilqr.config._replace(max_iters=TRACE_ITERS)
+    ilqr.Solve()                                   # warm, outside the trace
+    with trace(str(TRACE_DIR)) as log_dir:
+        ilqr.Solve()
+        torch.cuda.synchronize()
+    path = Path(log_dir) / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in name for name in kernels)
+             for k in ("megaroll", "megajac")}
+    ok = ok and all(named.values())
+    emit({"phase": "profile", "ok": ok, "solves": rows,
+          "rounds_sum_s": summed, "bracket_s": bracketed, "rel": rel,
+          "seconds": secs, "launches": launches,
+          "linesearch_chunks": counts["rollout"],
+          "fresh_derivative_rounds": counts["jac"],
+          "trace": {"file": str(path.relative_to(REPO)),
+                    "bytes": path.stat().st_size,
+                    "kernel_events": len(kernels),
+                    "kernel_events_named": named},
+          "criterion": "per solve one PhaseTimes record per iteration; "
+                       "forward + derivs + backward summed over the rounds "
+                       f"within {PROFILE_PIN:.0%} of the CUDA-event bracket "
+                       "around the rounds (both solves together); megaroll "
+                       "launches == linesearch chunks, megajac launches == "
+                       "fresh-derivative rounds; the trace's CUDA kernel "
+                       "events name megaroll and megajac"})
+    if not ok:
+        fail("profile", "the per-round phase times miss the rounds' bracket, "
+                        "a round has no record, the run left its kernels, "
+                        "or the trace does not show them")
 
 
 def run_example(ex, deriv_kernel=None, wrap=None, record=False, cfg=None):
@@ -1803,11 +1938,14 @@ def phase_scenario_chain():
 
 ARM_GOLDEN = {"panda": 3.1914, "kinova": 1.2865}   # the JAX goldens (side)
 ARM_DY = {"panda": 0.09, "kinova": 0.10}           # and their ball checks
-# Whether an arm's megajac run itself must meet the task.  On the Panda
-# the float64-accurate Jacobian leads the solve, in about half the runs
-# and in the card's own, into the basin where the ball stops short
-# (PERF.md); with the float32 Jacobian that the JAX example uses the
-# task is met, so that route's run is held to it on both arms.
+# Whether an arm's megajac run itself must meet the task.  The Panda's
+# is not held: under seeded 1e-7 Jacobian noise its default route meets
+# the ball check in about two thirds of the draws and the plain float32
+# route in nearly all, but under 1e-5 noise (draws that decorrelate) the
+# default, plain float32 and plain float64 routes meet it alike, in 25-28
+# of 40: the task's margin, not megajac's arithmetic, decides a run
+# (PERF.md).  panda_draws prints the default route's count; the plain
+# float32 route's run is held to the task on both arms.
 ARM_TASK_ON_RUN = {"panda": False, "kinova": True}
 
 
@@ -1924,6 +2062,45 @@ def phase_scenario_arm(name, results):
         results[k].setdefault("manipulation", {}).setdefault(
             name, {})["launches"] = launches
     return run
+
+
+PANDA_DRAWS = 40        # the default route's noise draws (panda_draws)
+PANDA_DRAW_SEED = 100   # their seeds: 100 to 139
+
+
+def phase_panda_draws():
+    """The Panda's run() at Config() on its default route (megaroll and
+    the cold megajac) under PANDA_DRAWS seeded draws of 1e-7 relative
+    Jacobian noise (noisy_jac; scenario_chaos.py's default_noise_1e-7
+    draws at the same seeds).  Prints how many meet the JAX goldens' ball
+    checks (arm_task), which is not held (ARM_TASK_ON_RUN); fails unless
+    every draw ends healthy and launched megaroll once a linesearch chunk
+    and megajac once a fresh derivative round."""
+    met, draws = 0, []
+    for k in range(PANDA_DRAWS):
+        seed = PANDA_DRAW_SEED + k
+        run = run_example(arm_example("panda"), deriv_kernel="lane",
+                          wrap=lambda s: noisy_jac(s, 1e-7, seed))
+        task = arm_task("panda", run["states"], run["cost"], run["sols"][0])
+        counts = run["timer"].counts
+        launched = bool(run["megaroll"] == counts["rollout"] > 0
+                        and run["megajac"] == counts["jac"] > 0)
+        met += task["met"]
+        draws.append(dict(seed=seed, met=task["met"], ball_dy=task["ball_dy"],
+                          cost=task["cost"], iterations=task["iterations"],
+                          healthy=task["healthy"], launched=launched,
+                          seconds=run["seconds"]))
+    ok = all(d["healthy"] and d["launched"] for d in draws)
+    emit({"phase": "panda_draws", "ok": ok, "draws": PANDA_DRAWS,
+          "seeds": [PANDA_DRAW_SEED, PANDA_DRAW_SEED + PANDA_DRAWS - 1],
+          "noise_rel": 1e-7, "met": met,
+          "criterion": "every draw healthy, megaroll launches == linesearch "
+                       "chunks, megajac launches == fresh-derivative rounds; "
+                       "the draws meeting the ball check (ball dy > 0.09, "
+                       "|z_end - 0.1| < 0.03, z_min > 0.08) printed",
+          "seconds": sum(d["seconds"] for d in draws), "by_draw": draws})
+    if not ok:
+        fail("panda_draws", "a draw left its kernels or ended unhealthy")
 
 
 def manipulation_cases(runs):
@@ -3219,6 +3396,7 @@ def main():
     phase_scenario_chain()
     runs = {name: phase_scenario_arm(name, results)
             for name in ("panda", "kinova")}
+    phase_panda_draws()
     phase_manip_kernels(results, runs)
     wall = phase_scenario_wall()
     phase_wall_kernels(results, wall)
@@ -3230,6 +3408,9 @@ def main():
     phase_scenario_acrobot_mpc()
     phase_scenario_sqp()
     phase_riccati_routes()
+    # last: after a torch.profiler trace with CUDA activity the process's
+    # host-bound phases ran ~1.5x slower (PERF.md)
+    phase_profile()
     print(card)
     emit({"kernels": [results[k] for k in ("megastep", "megaroll",
                                            "megajac", "megajac_cold")]})

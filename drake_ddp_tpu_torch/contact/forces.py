@@ -1,15 +1,28 @@
-"""Smooth hydroelastic-style contact force law: host-side parameters.
+"""Smooth hydroelastic-style contact force law.
 
-Port of ``drake_ddp_tpu/contact/forces.py``.  The force law itself is
-evaluated lane-major in :mod:`drake_ddp_tpu_torch.multibody.lanestep`
-(plain PyTorch) and in ``csrc/lanestep.cuh`` (the CUDA device step);
-what lives here is the parameter record and the static stiction
-continuation schedule, both host floats.
+Port of ``drake_ddp_tpu/contact/forces.py``: a closed-form, everywhere
+smooth force on each candidate contact,
+
+- normal force fn = force_scale * K * phi_s^2 (+ K1 * phi_s on box
+  faces), phi_s the softplus-smoothed penetration;
+- Hunt-Crossley dissipation factor smooth_relu(1 - d * vn);
+- regularized Coulomb friction -mu * fn * vt / sqrt(|vt|^2 + vs^2).
+
+The law is written once, lane-major (every per-contact scalar a ``(NC,
+B)`` lane tensor, vectors ``(NC, 3, B)``): the ``_T`` functions here,
+which the plain lane step and lane Jacobian of
+:mod:`drake_ddp_tpu_torch.multibody` call and ``csrc/lanestep.cuh``
+mirrors on the card.  The per-contact functions of the JAX package
+(:func:`contact_forces`, :func:`contact_forces_implicit`: a leading
+contact axis and no lane axis) evaluate it on one lane.  The parameter
+record and the static stiction continuation schedule are host floats.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
+
+import torch
 
 
 class ContactForceParams(NamedTuple):
@@ -21,6 +34,22 @@ class ContactForceParams(NamedTuple):
     smooth_width: float = 3e-3
     stiction_vel: float = 1e-3
     force_scale: float = 2.0
+
+
+def softplus(z):
+    """Stable softplus, log(1 + exp(z)) = max(z, 0) + log1p(exp(-|z|))
+    (the form of jax.nn.softplus; the CUDA step uses the same)."""
+    return torch.clamp(z, min=0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def smooth_penetration(phi, width: float):
+    """softplus(phi / width) * width: ~phi when deep, smooth near 0."""
+    return softplus(phi / width) * width
+
+
+def smooth_relu(x, eps: float = 1e-3):
+    """0.5 (x + sqrt(x^2 + eps^2)): a smooth max(x, 0)."""
+    return 0.5 * (x + torch.sqrt(x * x + eps * eps))
 
 
 def stiction_schedule(stiction_vel: float, contact_iters: int,
@@ -37,3 +66,125 @@ def stiction_schedule(stiction_vel: float, contact_iters: int,
     vs = float(stiction_vel)
     return [min(max(vs, vs_max), vs * anneal ** (contact_iters - 1 - it))
             for it in range(contact_iters)]
+
+
+# ---------------------------------------------------------------------------
+# lane-major force law: phi (NC, B), normal and v_rel (NC, 3, B), K, d, mu
+# (NC,) constants, K1 None or (NC, B)
+# ---------------------------------------------------------------------------
+
+
+def _contact_forces_T(phi, normal, v_rel, K, d, mu, params, K1=None):
+    """Explicit contact force (contact_iters == 0 step): force on body A
+    (NC, 3, B) at the current penetration."""
+    phi_s = smooth_penetration(phi, params.smooth_width)
+    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
+    fn = params.force_scale * K[:, None] * phi_s * phi_s
+    if K1 is not None:
+        fn = fn + K1 * phi_s
+    fn = fn * smooth_relu(1.0 - d[:, None] * vn)
+    vt = v_rel - vn[:, None] * normal
+    vt_norm = torch.sqrt(torch.sum(vt * vt, 1) + params.stiction_vel ** 2)
+    ft = -(mu[:, None] * fn / vt_norm)[:, None] * vt
+    return fn[:, None] * normal + ft
+
+
+def _contact_force_pred_T(phi, normal, v_rel, K, d, mu, dt, params,
+                          K1=None):
+    """Force-only twin of :func:`_contact_forces_implicit_T` (no D)."""
+    vs = params.stiction_vel
+    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
+    phi_s = smooth_penetration(phi - dt * vn, params.smooth_width)
+    fn0 = params.force_scale * K[:, None] * phi_s * phi_s
+    if K1 is not None:
+        fn0 = fn0 + K1 * phi_s
+    fn = fn0 * smooth_relu(1.0 - d[:, None] * vn)
+    vt = v_rel - vn[:, None] * normal
+    sigma = torch.sqrt(torch.sum(vt * vt, 1) + vs * vs)
+    mu_over = mu[:, None] * fn / sigma
+    return fn[:, None] * normal - mu_over[:, None] * vt
+
+
+def _contact_forces_implicit_T(phi, normal, v_rel, K, d, mu, dt, params,
+                               K1=None):
+    """Force at the implicitly predicted penetration phi - dt * vn, and
+    its exact Jacobian D = df/dv_rel: f (NC,3,B), D (NC,3,3,B)."""
+    w = params.smooth_width
+    vs = params.stiction_vel
+    s = params.force_scale
+    Kc, dc, muc = K[:, None], d[:, None], mu[:, None]
+    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
+    z = (phi - dt * vn) / w
+    phi_s = softplus(z) * w
+    sig = torch.sigmoid(z)
+    fn0 = s * Kc * phi_s * phi_s
+    dfn0 = 2.0 * s * Kc * phi_s
+    if K1 is not None:
+        fn0 = fn0 + K1 * phi_s
+        dfn0 = dfn0 + K1
+    eps = 1e-3
+    xx = 1.0 - dc * vn
+    rt = torch.sqrt(xx * xx + eps * eps)
+    hc = 0.5 * (xx + rt)                                 # smooth_relu(xx)
+    dhc = 0.5 * (1.0 + xx / rt)
+    fn = fn0 * hc
+    vt = v_rel - vn[:, None] * normal
+    sigma = torch.sqrt(torch.sum(vt * vt, 1) + vs * vs)
+    mu_over = muc * fn / sigma
+    f = fn[:, None] * normal - mu_over[:, None] * vt
+
+    b = -(dfn0 * sig * dt * hc + fn0 * dhc * dc)         # (NC, B)
+    vt_unit = vt / sigma[:, None]
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    P = eye[None, :, :, None] - normal[:, :, None] * normal[:, None]
+    D = ((normal - muc[:, None] * vt_unit)[:, :, None]
+         * (b[:, None] * normal)[:, None]
+         - mu_over[:, None, None] * P
+         + (mu_over / (sigma * sigma))[:, None, None]
+         * (vt[:, :, None] * vt[:, None]))
+    return f, D
+
+
+# ---------------------------------------------------------------------------
+# per-contact force law (the JAX package's signatures): the lane-major law
+# on one lane
+# ---------------------------------------------------------------------------
+
+
+def _one_lane(phi, normal, v_rel, K1):
+    return (phi[:, None], normal[..., None], v_rel[..., None],
+            None if K1 is None else K1[:, None])
+
+
+def contact_forces(phi: torch.Tensor, normal: torch.Tensor,
+                   v_rel: torch.Tensor, K: torch.Tensor, d: torch.Tensor,
+                   mu: torch.Tensor,
+                   params: ContactForceParams = ContactForceParams(),
+                   K1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """World-frame force on body A at each candidate contact, (NC, 3):
+    phi (NC,) penetration (positive = contact), normal (NC, 3) unit
+    normal (force on A along +n), v_rel (NC, 3) velocity of A's contact
+    point relative to B, K (NC,) quadratic stiffness, d (NC,) dissipation,
+    mu (NC,) friction, K1 (NC,) linear stiffness of box faces or None."""
+    phi, normal, v_rel, K1 = _one_lane(phi, normal, v_rel, K1)
+    return _contact_forces_T(phi, normal, v_rel, K, d, mu, params,
+                             K1=K1)[..., 0]
+
+
+def contact_forces_implicit(phi: torch.Tensor, normal: torch.Tensor,
+                            v_rel: torch.Tensor, K: torch.Tensor,
+                            d: torch.Tensor, mu: torch.Tensor, dt: float,
+                            params: ContactForceParams = ContactForceParams(),
+                            K1: Optional[torch.Tensor] = None):
+    """Force with the implicitly predicted penetration phi' = phi - dt
+    (n . v_rel), and its exact Jacobian D = df/dv_rel: (f (NC, 3),
+    D (NC, 3, 3)).  Arguments as in :func:`contact_forces`.
+
+    Per contact, with sigma = sqrt(|vt|^2 + vs^2), P = I - n n' and
+    b = dfn/dvn:
+        D = (n - mu vt/sigma) b n' - (mu fn/sigma) P + (mu fn/sigma^3) vt vt'
+    """
+    phi, normal, v_rel, K1 = _one_lane(phi, normal, v_rel, K1)
+    f, D = _contact_forces_implicit_T(phi, normal, v_rel, K, d, mu, dt,
+                                      params, K1=K1)
+    return f[..., 0], D[..., 0]

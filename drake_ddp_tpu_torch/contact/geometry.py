@@ -5,14 +5,16 @@ body-attached geometry but a box is decomposed into spheres; world
 geometries (ground planes, walls) stay analytic; body boxes stay boxes
 (face contact against halfspaces, closest-point contact against
 spheres).  Pair enumeration and collision filtering happen here, at
-build time; the device sees fixed-size tables.  The per-scenario
-``narrowphase`` is not ported yet: the lane-major narrowphase lives in
-:mod:`drake_ddp_tpu_torch.multibody.lanestep` and ``csrc/lanestep.cuh``.
+build time; the device sees fixed-size tables.  The narrowphase is
+written once, lane-major, in :mod:`drake_ddp_tpu_torch.multibody.lanestep`
+(``_narrowphase_T``; ``csrc/lanestep.cuh`` on the card);
+:func:`narrowphase` is the JAX package's per-scenario signature over it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -312,3 +314,46 @@ def build_contact_model(gs: GeometrySet, dtype=torch.float32,
         bs_g=arr(col(pair_bs, 2)), bs_d=arr(col(pair_bs, 3)),
         bs_mu=arr(col(pair_bs, 4)),
     )
+
+
+def narrowphase(cm: ContactModel, sph_center_w: torch.Tensor,
+                body_R: Optional[torch.Tensor] = None,
+                body_p: Optional[torch.Tensor] = None):
+    """Signed distances for all candidate pairs of one configuration.
+
+    Args:
+        cm: contact model.
+        sph_center_w: (ns, 3) world centers of all body spheres.
+        body_R: (nb, 3, 3) world rotations of all bodies, required when
+            the model has body-attached boxes.
+        body_p: (nb, 3) world positions of all bodies.
+    Returns:
+        phi: (NC,) penetration depth (positive = overlapping),
+        normal: (NC, 3) unit normal from geometry B into body A (force on
+            A along +normal),
+        point: (NC, 3) world contact point,
+        body_a, body_b: tuples of body indices (-1 for world geometry),
+        K: (NC,) quadratic stiffness pi r g_eff (0 for face contacts),
+        K1: (NC,) linear foundation stiffness (0 for sphere contacts),
+        d, mu: (NC,) combined dissipation and friction.
+
+    The lane-major narrowphase on one lane, with the tables cast to
+    ``sph_center_w``'s dtype."""
+    from drake_ddp_tpu_torch.multibody.lanestep import (_narrowphase_T,
+                                                        box_poses_T,
+                                                        narrowphase_consts)
+
+    if any(b >= 0 for b in cm.box_body) and (body_R is None
+                                            or body_p is None):
+        raise ValueError("the model has body-attached boxes: pass body_R "
+                         "and body_p")
+    dtype, dev = sph_center_w.dtype, sph_center_w.device
+    C = narrowphase_consts(types.SimpleNamespace(), cm, dtype, dev)
+    lane = lambda a: None if a is None else a.to(dtype)[..., None]
+    R_w, p_w = box_poses_T(cm, C, lane(body_R), lane(body_p))
+    phi, normal, point, body_a, body_b, K, d, mu, K1 = _narrowphase_T(
+        cm, C, lane(sph_center_w), R_w, p_w)
+    K1 = torch.zeros_like(phi) if K1 is None else K1
+    return (phi[:, 0], normal[..., 0], point[..., 0], body_a, body_b, K,
+            K1[:, 0], d, mu)
+

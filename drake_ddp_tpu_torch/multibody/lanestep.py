@@ -26,8 +26,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from drake_ddp_tpu_torch.contact.forces import (ContactForceParams,
-                                                stiction_schedule)
+from drake_ddp_tpu_torch.contact.forces import (  # noqa: F401
+    ContactForceParams,
+    _contact_force_pred_T,
+    _contact_forces_implicit_T,
+    _contact_forces_T,
+    softplus,
+    stiction_schedule,
+)
 from drake_ddp_tpu_torch.contact.geometry import ContactModel
 from drake_ddp_tpu_torch.multibody.model import (
     FIXED,
@@ -96,53 +102,64 @@ class LaneConsts:
             self._contact_consts(model, contact, c, t)
 
     def _contact_consts(self, model, cm, c, t):
-        self.sph_offset = c(cm.sph_offset)
-        self.sph_radius = c(cm.sph_radius)
-        self.sph_body = torch.as_tensor(cm.sph_body, dtype=torch.long,
-                                        device=model.device)
-        self.hs_normal = c(cm.hs_normal)
-        self.hs_offset = c(cm.hs_offset)
-        self.box_rot = c(cm.box_rot)
-        self.box_pos = c(cm.box_pos)
-        self.box_half = c(cm.box_half)
-        self.ws_pos = c(cm.ws_pos)
-        self.ws_radius = c(cm.ws_radius)
-        self.corner_signs = t(_CORNER_SIGNS)                 # (8, 3)
+        narrowphase_consts(self, cm, self.dtype, model.device)
         li = lambda seq: torch.as_tensor(list(seq), dtype=torch.long,
                                          device=model.device)
-        self.sh_s, self.sh_h = li(cm.pair_sh_s), li(cm.pair_sh_h)
-        self.ss_a, self.ss_b = li(cm.pair_ss_a), li(cm.pair_ss_b)
-        self.sw_s, self.sw_w = li(cm.pair_sw_s), li(cm.pair_sw_w)
         # per-contact ancestor-dof masks of the two bodies (zero rows for
         # the world) for the contact Jacobians
-        self.body_a, self.body_b = _contact_bodies(cm)
         anc = self.anc
         side = lambda bodies: (anc[li(max(b, 0) for b in bodies)]
                                * t([float(b >= 0) for b in bodies])[:, None])
         self.anc_a = side(self.body_a)
         self.anc_b = (side(self.body_b) if any(b >= 0 for b in self.body_b)
                       else None)
-        Ks, ds, mus = [], [], []
-        if cm.pair_sh_s:
-            Ks.append(cm.sh_K); ds.append(cm.sh_d); mus.append(cm.sh_mu)
-        if cm.pair_sb_s:
-            Ks.append(cm.sb_K); ds.append(cm.sb_d); mus.append(cm.sb_mu)
-        if cm.pair_ss_a:
-            Ks.append(cm.ss_K); ds.append(cm.ss_d); mus.append(cm.ss_mu)
-        if cm.pair_sw_s:
-            Ks.append(cm.sw_K); ds.append(cm.sw_d); mus.append(cm.sw_mu)
-        for n_pairs, g_d, g_mu in ((len(cm.pair_bh_b), cm.bh_d, cm.bh_mu),
-                                   (len(cm.pair_bs_b), cm.bs_d, cm.bs_mu)):
-            if n_pairs:
-                Ks.append(torch.zeros(8 * n_pairs, dtype=torch.float32,
-                                      device=model.device))
-                ds.append(torch.repeat_interleave(g_d, 8))
-                mus.append(torch.repeat_interleave(g_mu, 8))
-        self.K = c(torch.cat(Ks))
-        self.d = c(torch.cat(ds))
-        self.mu = c(torch.cat(mus))
-        self.bh_g = c(cm.bh_g)
-        self.bs_g = None if cm.bs_g is None else c(cm.bs_g)
+
+
+def narrowphase_consts(C, cm: ContactModel, dtype, device):
+    """Set on ``C`` the contact tables that :func:`_narrowphase_T` reads,
+    as tensors of ``dtype`` on ``device``, and the static body index
+    tuples of the rows.  Returns ``C``."""
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    c = lambda a: a.to(dtype)
+    li = lambda seq: torch.as_tensor(list(seq), dtype=torch.long,
+                                     device=device)
+    C.sph_offset = c(cm.sph_offset)
+    C.sph_radius = c(cm.sph_radius)
+    C.sph_body = li(cm.sph_body)
+    C.hs_normal = c(cm.hs_normal)
+    C.hs_offset = c(cm.hs_offset)
+    C.box_rot = c(cm.box_rot)
+    C.box_pos = c(cm.box_pos)
+    C.box_half = c(cm.box_half)
+    C.ws_pos = c(cm.ws_pos)
+    C.ws_radius = c(cm.ws_radius)
+    C.corner_signs = t(_CORNER_SIGNS)                    # (8, 3)
+    C.sh_s, C.sh_h = li(cm.pair_sh_s), li(cm.pair_sh_h)
+    C.ss_a, C.ss_b = li(cm.pair_ss_a), li(cm.pair_ss_b)
+    C.sw_s, C.sw_w = li(cm.pair_sw_s), li(cm.pair_sw_w)
+    C.body_a, C.body_b = _contact_bodies(cm)
+    Ks, ds, mus = [], [], []
+    if cm.pair_sh_s:
+        Ks.append(cm.sh_K); ds.append(cm.sh_d); mus.append(cm.sh_mu)
+    if cm.pair_sb_s:
+        Ks.append(cm.sb_K); ds.append(cm.sb_d); mus.append(cm.sb_mu)
+    if cm.pair_ss_a:
+        Ks.append(cm.ss_K); ds.append(cm.ss_d); mus.append(cm.ss_mu)
+    if cm.pair_sw_s:
+        Ks.append(cm.sw_K); ds.append(cm.sw_d); mus.append(cm.sw_mu)
+    for n_pairs, g_d, g_mu in ((len(cm.pair_bh_b), cm.bh_d, cm.bh_mu),
+                               (len(cm.pair_bs_b), cm.bs_d, cm.bs_mu)):
+        if n_pairs:
+            Ks.append(torch.zeros(8 * n_pairs, dtype=torch.float32,
+                                  device=device))
+            ds.append(torch.repeat_interleave(g_d, 8))
+            mus.append(torch.repeat_interleave(g_mu, 8))
+    C.K = c(torch.cat(Ks))
+    C.d = c(torch.cat(ds))
+    C.mu = c(torch.cat(mus))
+    C.bh_g = c(cm.bh_g)
+    C.bs_g = None if cm.bs_g is None else c(cm.bs_g)
+    return C
 
 
 def _contact_bodies(cm: ContactModel):
@@ -244,12 +261,6 @@ def _outer_sum(a, b, chunk=8):
         t = torch.sum(aa[:, :, None] * bb[:, None], dim=0)
         out = t if out is None else out + t
     return out
-
-
-def softplus(z):
-    """Stable softplus, log(1 + exp(z)) = max(z, 0) + log1p(exp(-|z|))
-    (the form of jax.nn.softplus; the CUDA step uses the same)."""
-    return torch.clamp(z, min=0) + torch.log1p(torch.exp(-torch.abs(z)))
 
 
 def solve_spd_T(A, b):
@@ -638,84 +649,6 @@ def _contact_jacobians_T(model, C: LaneConsts, kinT, points):
     return Jc                                            # (NC, 3, nv, B)
 
 
-def _contact_forces_T(phi, normal, v_rel, K, d, mu, params, K1=None):
-    """Explicit contact force (contact_iters == 0 step): force on body A
-    (NC, 3, B) at the current penetration."""
-    w = params.smooth_width
-    phi_s = softplus(phi / w) * w
-    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
-    fn = params.force_scale * K[:, None] * phi_s * phi_s
-    if K1 is not None:
-        fn = fn + K1 * phi_s
-    x = 1.0 - d[:, None] * vn
-    eps = 1e-3
-    fn = fn * (0.5 * (x + torch.sqrt(x * x + eps * eps)))
-    vt = v_rel - vn[:, None] * normal
-    vt_norm = torch.sqrt(torch.sum(vt * vt, 1) + params.stiction_vel ** 2)
-    ft = -(mu[:, None] * fn / vt_norm)[:, None] * vt
-    return fn[:, None] * normal + ft
-
-
-def _contact_force_pred_T(phi, normal, v_rel, K, d, mu, dt, params,
-                          K1=None):
-    """Force-only twin of :func:`_contact_forces_implicit_T` (no D)."""
-    w = params.smooth_width
-    vs = params.stiction_vel
-    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
-    phi_s = softplus((phi - dt * vn) / w) * w
-    fn0 = params.force_scale * K[:, None] * phi_s * phi_s
-    if K1 is not None:
-        fn0 = fn0 + K1 * phi_s
-    eps = 1e-3
-    xx = 1.0 - d[:, None] * vn
-    hc = 0.5 * (xx + torch.sqrt(xx * xx + eps * eps))
-    fn = fn0 * hc
-    vt = v_rel - vn[:, None] * normal
-    sigma = torch.sqrt(torch.sum(vt * vt, 1) + vs * vs)
-    mu_over = mu[:, None] * fn / sigma
-    return fn[:, None] * normal - mu_over[:, None] * vt
-
-
-def _contact_forces_implicit_T(phi, normal, v_rel, K, d, mu, dt, params,
-                               K1=None):
-    """Force at the implicitly predicted penetration phi - dt * vn, and
-    its exact Jacobian D = df/dv_rel: f (NC,3,B), D (NC,3,3,B)."""
-    w = params.smooth_width
-    vs = params.stiction_vel
-    s = params.force_scale
-    Kc, dc, muc = K[:, None], d[:, None], mu[:, None]
-    vn = torch.sum(v_rel * normal, 1)                    # (NC, B)
-    z = (phi - dt * vn) / w
-    phi_s = softplus(z) * w
-    sig = torch.sigmoid(z)
-    fn0 = s * Kc * phi_s * phi_s
-    dfn0 = 2.0 * s * Kc * phi_s
-    if K1 is not None:
-        fn0 = fn0 + K1 * phi_s
-        dfn0 = dfn0 + K1
-    eps = 1e-3
-    xx = 1.0 - dc * vn
-    rt = torch.sqrt(xx * xx + eps * eps)
-    hc = 0.5 * (xx + rt)
-    dhc = 0.5 * (1.0 + xx / rt)
-    fn = fn0 * hc
-    vt = v_rel - vn[:, None] * normal
-    sigma = torch.sqrt(torch.sum(vt * vt, 1) + vs * vs)
-    mu_over = muc * fn / sigma
-    f = fn[:, None] * normal - mu_over[:, None] * vt
-
-    b = -(dfn0 * sig * dt * hc + fn0 * dhc * dc)         # (NC, B)
-    vt_unit = vt / sigma[:, None]
-    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
-    P = eye[None, :, :, None] - normal[:, :, None] * normal[:, None]
-    D = ((normal - muc[:, None] * vt_unit)[:, :, None]
-         * (b[:, None] * normal)[:, None]
-         - mu_over[:, None, None] * P
-         + (mu_over / (sigma * sigma))[:, None, None]
-         * (vt[:, :, None] * vt[:, None]))
-    return f, D
-
-
 def sphere_centers_T(R, p, sph_body, sph_offset):
     """World centers (ns, 3, B) of body-attached spheres from the body
     poses R (nb, 3, 3, B), p (nb, 3, B): sph_body (ns,) long, sph_offset
@@ -725,15 +658,11 @@ def sphere_centers_T(R, p, sph_body, sph_offset):
                     for j in range(3))
 
 
-def _contact_primal_T(model, C: LaneConsts, contact: ContactModel, kinT):
-    """Sphere centers -> narrowphase -> contact Jacobians.  Returns
-    (phi, normal, point, body_a, body_b, K, d, mu, K1, Jc)."""
-    R, p = kinT[0], kinT[1]
-    B = p.shape[-1]
-    if contact.sph_body:
-        centers = sphere_centers_T(R, p, C.sph_body, C.sph_offset)
-    else:
-        centers = p.new_zeros((0, 3, B))
+def box_poses_T(contact: ContactModel, C, R, p):
+    """World poses of the scene's boxes: lists of rotations and positions,
+    (3, 3) / (3,) constants for world boxes and (3, 3, B) / (3, B) lane
+    tensors for body boxes, from the body poses R (nb, 3, 3, B), p (nb,
+    3, B)."""
     box_R_w, box_p_w = [], []
     for i, bb in enumerate(contact.box_body):
         if bb < 0:
@@ -746,8 +675,20 @@ def _contact_primal_T(model, C: LaneConsts, contact: ContactModel, kinT):
                                for k in range(3)))
             box_p_w.append(p[bb] + sum(Rb[:, k] * C.box_pos[i][k]
                                        for k in range(3)))
+    return box_R_w, box_p_w
+
+
+def _contact_primal_T(model, C: LaneConsts, contact: ContactModel, kinT):
+    """Sphere centers -> narrowphase -> contact Jacobians.  Returns
+    (phi, normal, point, body_a, body_b, K, d, mu, K1, Jc)."""
+    R, p = kinT[0], kinT[1]
+    B = p.shape[-1]
+    if contact.sph_body:
+        centers = sphere_centers_T(R, p, C.sph_body, C.sph_offset)
+    else:
+        centers = p.new_zeros((0, 3, B))
     phi, normal, point, body_a, body_b, K, d, mu, K1 = _narrowphase_T(
-        contact, C, centers, box_R_w, box_p_w)
+        contact, C, centers, *box_poses_T(contact, C, R, p))
     Jc = _contact_jacobians_T(model, C, kinT, point)
     return phi, normal, point, body_a, body_b, K, d, mu, K1, Jc
 

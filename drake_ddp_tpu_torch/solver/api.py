@@ -36,6 +36,8 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     ILQRStats,
     solve_ilqr,
 )
+from drake_ddp_tpu_torch.solver.profile import (format_phase_table,
+                                                profiled_solve)
 from drake_ddp_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -150,19 +152,30 @@ class IterativeLinearQuadraticRegulator:
                            R=t(self.R), Qf=t(self.Qf),
                            u_init=t(self.u_guess.T))    # to time-major
 
-    def _solve(self, timer):
+    def _solve(self, timer, profiled=False):
         st = time.time()
-        sol = _to_numpy(solve_ilqr(self.system, self.config, self._problem(),
-                                   deriv_kernel=self.deriv_kernel,
-                                   timer=timer))
+        if profiled:
+            sol, times = profiled_solve(self.system, self.config,
+                                        self._problem(),
+                                        deriv_kernel=self.deriv_kernel,
+                                        timer=timer)
+        else:
+            sol = solve_ilqr(self.system, self.config, self._problem(),
+                             deriv_kernel=self.deriv_kernel, timer=timer)
+        sol = _to_numpy(sol)
         solve_time = time.time() - st
         self._solution = sol
         if self.verbose:
-            self._print_table(sol, solve_time)
+            if profiled:
+                print(format_phase_table(sol, times))
+                print(f"total solve time: {solve_time:.4f} s")
+            else:
+                self._print_table(sol, solve_time)
         if sol.diverged and self.raise_on_divergence:
             raise RuntimeError(
                 "linesearch failed (eps < %g)" % self.config.eps_min)
-        return sol.x.T, sol.u.T, solve_time, float(sol.cost)
+        out = (sol.x.T, sol.u.T, solve_time, float(sol.cost))
+        return out + (times,) if profiled else out
 
     def Solve(self):
         """Solve and return (x (n, N), u (m, N-1), solve_time,
@@ -170,15 +183,13 @@ class IterativeLinearQuadraticRegulator:
         return self._solve(self.timer)
 
     def SolveProfiled(self):
-        """:meth:`Solve` with the device time of each solver phase
-        (rollout, jac, derivs, riccati; CUDA events, so on the card only):
-        returns the Solve() contract plus a dict of milliseconds."""
-        if self.device.type != "cuda":
-            raise ValueError("SolveProfiled times the card with CUDA "
-                             "events; use device='cuda'")
-        timer = PhaseTimer()
-        out = self._solve(timer)
-        return out + (timer.totals_ms(),)
+        """:meth:`Solve` with per-iteration phase times (the reference's
+        time_fp / time_getDerivs / time_bp columns, printed as that table
+        when verbose): returns the Solve() contract plus a
+        :class:`~drake_ddp_tpu_torch.solver.profile.PhaseTimes`, in
+        seconds (CUDA events on the card, the host clock on the CPU).
+        The solver's ``timer`` still gets every phase."""
+        return self._solve(self.timer, profiled=True)
 
     def _print_table(self, sol: ILQRSolution, solve_time: float):
         bar = "-" * 80

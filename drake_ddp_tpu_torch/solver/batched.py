@@ -226,7 +226,8 @@ def solve_ilqr_batched(
     (``lane_jac_fn``), None for the root-seeded one when the system has
     it, else the cold one.
     ``timer``: optional :class:`~drake_ddp_tpu_torch.utils.timing.
-    PhaseTimer` that gets the rollout, jac, derivs and riccati phases."""
+    PhaseTimer` that gets the linesearch (with its rollouts), jac,
+    derivs and riccati phases."""
     cfg.derivs.validate()
     rollout = _rollout_for(system, rollout_kernel)
     jac, root = _jac_for(system, deriv_kernel, root_seed)
@@ -244,16 +245,37 @@ def solve_ilqr_batched(
     backward = (parallel_backward_pass if cfg.parallel_backward
                 else _backward_pass)
     adaptive = cfg.reg > 0.0
-    lane_ix = torch.arange(B, device=dev)
+    iters = torch.arange(cfg.max_iters, device=dev)
 
     def forward_and_backward(state: _LoopState) -> _LoopState:
-        (eps, x, u, L_new, imp, ls_iters, failed,
-         floor_cut) = _linesearch_batched(rollout, cfg, prob, state, timer)
+        with phase(timer, "linesearch"):
+            (eps, x, u, L_new, imp, ls_iters, failed,
+             floor_cut) = _linesearch_batched(rollout, cfg, prob, state,
+                                              timer)
 
         selb = lambda flag, a, b: torch.where(
             flag.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
         x_use = selb(failed, state.x_bar, x)
         u_use = selb(failed, state.u_bar, u)
+        started = state.iteration > 0
+
+        # fresh derivatives for every lane; failed lanes keep the cached
+        # stack (valid only after iteration 0: before that it is the zeros
+        # init, and a first-iteration failure must linearize the kept
+        # trajectory, e.g. the policy warm start).  The round's other
+        # bookkeeping follows the derivative launch, so that on the card
+        # the host does it while the Jacobian kernels run.
+        cache_ok = failed & started
+        if B == 1 and not any_lane(~cache_ok):
+            fx, fu = state.fx, state.fu
+            percent = torch.zeros_like(state.L)
+        else:
+            with phase(timer, "derivs"):
+                fx_new, fu_new, pct = derivs_fn(x_use, u_use)
+            fx = selb(cache_ok, state.fx, fx_new)
+            fu = selb(cache_ok, state.fu, fu_new)
+            percent = torch.where(failed, torch.zeros_like(pct), pct)
+
         L_use = torch.where(failed, state.L, L_new)
         if adaptive:
             reg_new = torch.where(
@@ -265,38 +287,18 @@ def solve_ilqr_batched(
         # below ls_expected_floor <= delta: convergence, not divergence.
         # isfinite(L): a lane with no finite incumbent is not at an optimum
         at_optimum = (((torch.sum(state.dV_coeff, dim=1) <= cfg.delta)
-                       | floor_cut) & (state.iteration > 0)
-                      & torch.isfinite(state.L))
+                       | floor_cut) & started & torch.isfinite(state.L))
         exhausted = ((state.reg >= cfg.reg_max) | at_optimum
                      | (not adaptive))
         retry = failed & ~exhausted
         diverged = failed & exhausted & ~at_optimum
 
-        # fresh derivatives for every lane; failed lanes keep the cached
-        # stack (valid only after iteration 0: before that it is the zeros
-        # init, and a first-iteration failure must linearize the kept
-        # trajectory, e.g. the policy warm start)
-        cache_ok = failed & (state.iteration > 0)
-        if B == 1 and not any_lane(~cache_ok):
-            fx, fu = state.fx, state.fu
-            percent = torch.zeros_like(state.L)
-        else:
-            with phase(timer, "derivs"):
-                fx_new, fu_new, pct = derivs_fn(x_use, u_use)
-            fx = selb(cache_ok, state.fx, fx_new)
-            fu = selb(cache_ok, state.fu, fu_new)
-            percent = torch.where(failed, torch.zeros_like(pct), pct)
-        with phase(timer, "riccati"):
-            kappa, K, dV = backward(cfg, prob, x_use, u_use, fx, fu,
-                                    reg_new)
-
         # inactive lanes (iteration == max_iters) write a discarded slot
         it = state.iteration.long().clamp(max=cfg.max_iters - 1)
+        slot = iters[None] == it[:, None]                     # (B, max_iters)
 
         def put(tab, v):
-            tab = tab.clone()
-            tab[lane_ix, it] = v.to(tab.dtype)
-            return tab
+            return torch.where(slot, v.to(tab.dtype)[:, None], tab)
 
         stats = ILQRStats(
             cost=put(state.stats.cost, L_use),
@@ -306,6 +308,9 @@ def solve_ilqr_batched(
             percent_derivs=put(state.stats.percent_derivs, percent),
         )
         improvement = torch.where(failed, torch.zeros_like(imp), imp)
+        with phase(timer, "riccati"):
+            kappa, K, dV = backward(cfg, prob, x_use, u_use, fx, fu,
+                                    reg_new)
         return _LoopState(
             x_bar=x_use, u_bar=u_use, fx=fx, fu=fu, kappa=kappa, K=K,
             dV_coeff=dV, L=L_use, improvement=improvement,
@@ -346,6 +351,10 @@ def solve_ilqr_batched(
         if not any_lane(active):
             break
         new = forward_and_backward(state)
+        if B == 1:
+            # the one lane is active: freezing nothing, the select is `new`
+            state = new
+            continue
         sel = lambda a, b: torch.where(
             active.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
         state = _LoopState(*(

@@ -1,7 +1,10 @@
-"""Small batched SPD solves and inverses.
+"""Small batched solves and inverses.
 
-Port of ``solve_spd`` from ``drake_ddp_tpu/utils/linalg.py``, which backs
-the Riccati gain solve, and of the inverse that the associative-scan
+Port of ``drake_ddp_tpu/utils/linalg.py``: ``solve_spd``, which backs the
+Riccati gain solve, ``inv_spd``, ``solve_small`` (the unpivoted
+Gauss-Jordan solve of the contact Newton matrix, the lane-major
+``solve_small_T`` of :mod:`drake_ddp_tpu_torch.multibody.lanestep` with
+the batch axes moved last), and the inverse that the associative-scan
 Riccati takes of ``I + C J`` (``_gauss_jordan`` there).  The JAX package writes the Cholesky out by hand
 to keep TPU programs small; here it is one batched ``torch.linalg``
 factorization (unpivoted, so the factor is the same unique Cholesky
@@ -29,6 +32,25 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, rhs, upper=False)
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
     return x[..., 0] if vec else x
+
+
+def inv_spd(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of small SPD matrices A (..., n, n), by :func:`solve_spd`."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return solve_spd(A, eye.expand(A.shape))
+
+
+def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b by Gauss-Jordan elimination without pivoting, for
+    diagonally dominant systems such as the contact Newton matrix
+    M - dt Jc' D Jc.  A (..., n, n), b (..., n)."""
+    from drake_ddp_tpu_torch.multibody.lanestep import solve_small_T
+
+    batch = b.shape[:-1]
+    n = A.shape[-1]
+    A_T = A.reshape(-1, n, n).permute(1, 2, 0)           # (n, n, batch)
+    x = solve_small_T(A_T, b.reshape(-1, n).T)           # (n, batch)
+    return x.T.reshape(batch + (n,))
 
 
 def inv_i_plus_psd(A: torch.Tensor) -> torch.Tensor:

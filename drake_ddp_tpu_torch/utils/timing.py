@@ -1,8 +1,9 @@
 """Per-phase device time from CUDA events.
 
-The batched solver brackets its stages (rollout, lane Jacobian,
-derivative total, Riccati sweep) with :meth:`PhaseTimer.phase` when it
-is given a timer.  Events are only recorded, never waited on, inside
+The batched solver brackets its stages (the linesearch and its
+rollouts, lane Jacobian, derivative total, Riccati sweep) with
+:meth:`PhaseTimer.phase` when it is given a timer
+(:mod:`drake_ddp_tpu_torch.solver.profile` keeps them per iLQR round).  Events are only recorded, never waited on, inside
 the solve; :meth:`PhaseTimer.totals_ms` synchronises once and sums the
 elapsed times per phase.
 """

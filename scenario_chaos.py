@@ -21,14 +21,26 @@ checks, ``met``):
   float32 inputs, megajac's own precision;
 - ``lane_f64_noise_1e-7``, ``lane_f64_noise_1e-6``: that with relative
   noise of that size on every entry, seeded by ``--seed`` (13);
-- ``default_noise_1e-7`` to ``default_noise_1e-3``, ``lane_f32_noise_1e-7``:
-  the default route, or the plain float32 one, with such noise;
+- ``default_noise_1e-7`` to ``default_noise_1e-3``, ``lane_f32_noise_1e-7``,
+  ``lane_f32_noise_1e-5``, ``lane_f64_noise_1e-5``: the default route, or
+  the plain float32 or float64 one, with such noise;
 - ``megajac_root``: the root-seeded megajac, linearized at megaroll's own
   next states (``root_seed=True``), and ``megajac_root_noise_1e-7``;
 - ``lane_f32_root_f64``: the plain float32 root-seeded lane Jacobian at
   the float64 step's roots (the plain lane step in float64 from the
   float32 inputs, megajac's own Newton precision), and its
-  ``_noise_1e-7`` draws.
+  ``_noise_1e-7`` draws;
+- ``swap_<group>_noise_1e-7`` (an arm's example): the default route's
+  Jacobian with one group of entries taken from the plain float32 lane
+  Jacobian of the same call, then the noise: rows ``arm_q``,
+  ``ball_quat``, ``ball_pos``, ``arm_v``, ``ball_v`` (the free ball's
+  quaternion, position, and velocity: ``ball_w`` angular, ``ball_vl``
+  linear), columns ``cols_q``, ``cols_v``, ``cols_u``, ``cols_arm_v``,
+  ``cols_ball_v``, or a block ``<rows>_x_cols_<columns>``;
+- ``lane_f64_ginv32``, ``lane_f64_D32`` (and their ``_noise_1e-7``
+  draws): ``lane_f64`` with one piece computed in float32 from its
+  float64 inputs: G^-1, or the contact force Jacobian D (in the Newton
+  and in G).
 
 With ``--draws K`` a noise route runs K times, seeded ``--seed`` to
 ``--seed`` + K - 1, and a summary line follows its runs (for an arm the
@@ -51,7 +63,37 @@ ROUTES = ("default", "lane_f32", "lane_f64", "lane_f64_noise_1e-7",
           "lane_f64_noise_1e-6", "default_noise_1e-7", "default_noise_1e-6",
           "lane_f32_noise_1e-7", "default_noise_1e-5", "default_noise_1e-4",
           "default_noise_1e-3", "megajac_root", "megajac_root_noise_1e-7",
-          "lane_f32_root_f64", "lane_f32_root_f64_noise_1e-7")
+          "lane_f32_root_f64", "lane_f32_root_f64_noise_1e-7",
+          "lane_f32_noise_1e-5", "lane_f64_noise_1e-5")
+# groups of Jacobian entries of an arm with a free ball (swap routes):
+# (start, stop) of the rows, or of the columns of (fx | fu), by the
+# model's (nq, nv); the ball's free joint comes last (quaternion and
+# position, then angular and linear velocity)
+SWAP_ROWS = {
+    "arm_q": lambda nq, nv: (0, nq - 7),
+    "ball_quat": lambda nq, nv: (nq - 7, nq - 3),
+    "ball_pos": lambda nq, nv: (nq - 3, nq),
+    "arm_v": lambda nq, nv: (nq, nq + nv - 6),
+    "ball_v": lambda nq, nv: (nq + nv - 6, nq + nv),
+    "ball_w": lambda nq, nv: (nq + nv - 6, nq + nv - 3),
+    "ball_vl": lambda nq, nv: (nq + nv - 3, nq + nv),
+}
+SWAP_COLS = {
+    "q": lambda nq, nv: (0, nq),
+    "v": lambda nq, nv: (nq, nq + nv),
+    "u": lambda nq, nv: (nq + nv, None),
+    "arm_v": lambda nq, nv: (nq, nq + nv - 6),
+    "ball_v": lambda nq, nv: (nq + nv - 6, nq + nv),
+}
+SWAP_GROUPS = (tuple(SWAP_ROWS) + tuple(f"cols_{c}" for c in SWAP_COLS)
+               + tuple(f"{r}_x_cols_{c}" for r in SWAP_ROWS
+                       for c in SWAP_COLS))
+ROUTES += tuple(f"swap_{g}_noise_1e-7" for g in SWAP_GROUPS)
+# the plain float64 lane Jacobian with one piece computed in float32 from
+# its float64 inputs: G^-1, or the force Jacobian D (the Newton's and G's)
+F32_PIECES = ("ginv32", "D32")
+ROUTES += tuple(f"lane_f64_{p}{n}" for p in F32_PIECES
+                for n in ("", "_noise_1e-7"))
 # routes on the root-seeded Jacobian, at the rollout's own next states
 ROOT_ROUTES = ("megajac_root", "lane_f32_root_f64")
 ROLLOUTS = ("fused", "megastep", "plain")
@@ -78,6 +120,10 @@ def wrapped(system, route, device, seed=13):
             x, u, step(x.double(), u.double()).float())
     elif base == "lane_f32" and noise:
         jac = system.lane_jac_fn
+    elif base.startswith("lane_f64_") and base[9:] in F32_PIECES:
+        jac = f32_piece(system, base[9:])
+    elif base.startswith("swap_"):
+        jac = swapped(system, base[len("swap_"):])
     elif noise:
         jac = megajac_for_system(system, root_seed=root)
     else:
@@ -90,6 +136,63 @@ def wrapped(system, route, device, seed=13):
             for J in clean(*a))
     field = "lane_jac_root_fn" if root else "lane_jac_fn"
     return dataclasses.replace(system, **{field: jac})
+
+
+def f32_piece(system, piece):
+    """The plain cold lane Jacobian in float64 from the float32 inputs,
+    ``piece`` (F32_PIECES) computed in float32 from its float64 inputs
+    and cast back: ``(x, u) -> (fx, fu)`` float32."""
+    import torch
+    from drake_ddp_tpu_torch.multibody import lanejac
+    name = {"ginv32": "inv_small_T",
+            "D32": "_contact_forces_implicit_T"}[piece]
+    full = getattr(lanejac, name)
+    cast = lambda t, dt: (t.to(dt) if torch.is_tensor(t) else
+                          tuple(cast(a, dt) for a in t)
+                          if type(t) is tuple else t)
+
+    def low(*a, **k):
+        out = full(*cast(a, torch.float32),
+                   **{key: cast(v, torch.float32) for key, v in k.items()})
+        return cast(out, torch.float64)
+
+    # D32: the force stays float64, its Jacobian D is the float32 one
+    patch = ((lambda *a, **k: (full(*a, **k)[0], low(*a, **k)[1]))
+             if piece == "D32" else low)
+    lane = system.lane_jac_fn
+
+    def jac(x, u):
+        setattr(lanejac, name, patch)
+        try:
+            return tuple(J.float() for J in lane(x.double(), u.double()))
+        finally:
+            setattr(lanejac, name, full)
+    return jac
+
+
+def swapped(system, group):
+    """The default route's cold Jacobian ``(x, u) -> (fx, fu)`` with the
+    entries of ``group`` (SWAP_GROUPS: a row group, ``cols_`` a column
+    group, or ``<rows>_x_cols_<cols>`` their block) taken from the plain
+    float32 lane Jacobian of the same inputs."""
+    import torch
+    from drake_ddp_tpu_torch.ops.megajac import megajac_for_system
+    model = system.params[0]
+    rows, _, cols = group.partition("cols_")
+    rows = rows.removesuffix("_x_")
+    span = lambda table, key: (slice(*table[key](model.nq, model.nv))
+                               if key else slice(None))
+    block = (span(SWAP_ROWS, rows), span(SWAP_COLS, cols))
+    kernel, plain = megajac_for_system(system, root_seed=False), \
+        system.lane_jac_fn
+
+    def jac(x, u):
+        n = x.shape[0]
+        J, P = (torch.cat(f(x, u), dim=1) for f in (kernel, plain))
+        J = J.clone()
+        J[block] = P[block]
+        return J[:, :n].contiguous(), J[:, n:].contiguous()
+    return jac
 
 
 def run_route(route, device, example="mini_cheetah", seed=13,
