@@ -1511,6 +1511,8 @@ SCENARIO_NOISE_REL = 1e-6   # the noise control's relative Jacobian noise
 PROFILE_PIN = 0.02          # per-round phase sums against the rounds' bracket
 TRACE_DIR = REPO / "build" / "chip_smoke_trace"
 TRACE_ITERS = 2             # iterations of the traced solve
+TRACE_SLOWDOWN = 1.15       # a host-bound solve after the trace / before
+TRACE_SOLVES = 3            # its timed solves on each side (the fastest)
 
 
 def phase_profile():
@@ -1527,7 +1529,10 @@ def phase_profile():
     and megajac once a fresh derivative round.  Then utils.profiling.trace
     around one more solve (the entry solve cut to TRACE_ITERS iterations)
     writes a Chrome trace whose CUDA kernel events must name megaroll and
-    megajac."""
+    megajac.  A host-bound solve (the Panda side task's, TRACE_SOLVES
+    times on each side, the fastest) is timed before the trace and after
+    it: the trace must not leave the process slower (after / before
+    within TRACE_SLOWDOWN)."""
     import collections
     import contextlib
     import torch
@@ -1608,9 +1613,26 @@ def phase_profile():
         mini_cheetah.Config(verbose=False), device="cuda")
     ilqr.config = ilqr.config._replace(max_iters=TRACE_ITERS)
     ilqr.Solve()                                   # warm, outside the trace
+    panda = arm_example("panda")
+    host_bound = panda.build_solver(panda.Config(verbose=False),
+                                    device="cuda")
+
+    def solve_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_bound.Solve()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    solve_s()                                      # warm
+    before = [solve_s() for _ in range(TRACE_SOLVES)]
     with trace(str(TRACE_DIR)) as log_dir:
         ilqr.Solve()
         torch.cuda.synchronize()
+    after = [solve_s() for _ in range(TRACE_SOLVES)]
+    # the fastest of each side: the host's other load only adds time
+    slowdown = min(after) / min(before)
+    ok = ok and slowdown <= TRACE_SLOWDOWN
     path = Path(log_dir) / "trace.json"
     events = json.loads(path.read_text())["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
@@ -1626,17 +1648,24 @@ def phase_profile():
                     "bytes": path.stat().st_size,
                     "kernel_events": len(kernels),
                     "kernel_events_named": named},
+          "host_bound_solve_s": {"before_trace": before,
+                                 "after_trace": after,
+                                 "after_over_before": slowdown},
           "criterion": "per solve one PhaseTimes record per iteration; "
                        "forward + derivs + backward summed over the rounds "
                        f"within {PROFILE_PIN:.0%} of the CUDA-event bracket "
                        "around the rounds (both solves together); megaroll "
                        "launches == linesearch chunks, megajac launches == "
                        "fresh-derivative rounds; the trace's CUDA kernel "
-                       "events name megaroll and megajac"})
+                       "events name megaroll and megajac; the Panda's "
+                       "solve after the trace within "
+                       f"{TRACE_SLOWDOWN} x its time before (the fastest "
+                       f"of {TRACE_SOLVES} on each side)"})
     if not ok:
         fail("profile", "the per-round phase times miss the rounds' bracket, "
                         "a round has no record, the run left its kernels, "
-                        "or the trace does not show them")
+                        "the trace does not show them, or it left the "
+                        "process slower")
 
 
 def run_example(ex, deriv_kernel=None, wrap=None, record=False, cfg=None):
@@ -1939,14 +1968,13 @@ def phase_scenario_chain():
 ARM_GOLDEN = {"panda": 3.1914, "kinova": 1.2865}   # the JAX goldens (side)
 ARM_DY = {"panda": 0.09, "kinova": 0.10}           # and their ball checks
 # Whether an arm's megajac run itself must meet the task.  The Panda's
-# is not held: under seeded 1e-7 Jacobian noise its default route meets
-# the ball check in about two thirds of the draws and the plain float32
-# route in nearly all, but under 1e-5 noise (draws that decorrelate) the
-# default, plain float32 and plain float64 routes meet it alike, in 25-28
-# of 40: the task's margin, not megajac's arithmetic, decides a run
-# (PERF.md).  panda_draws prints the default route's count; the plain
+# is held: under 1e-5 Jacobian noise (draws that decorrelate the chain)
+# its default route meets the ball check as often as the JAX example does
+# (153 and 150 of 200 draws, Fisher p 0.82; PERF.md), and its noise-free
+# run meets it since the float64 step sums sphere-pair radii as JAX does.
+# panda_draws holds the default route's count under that noise; the plain
 # float32 route's run is held to the task on both arms.
-ARM_TASK_ON_RUN = {"panda": False, "kinova": True}
+ARM_TASK_ON_RUN = {"panda": True, "kinova": True}
 
 
 def arm_example(name):
@@ -2066,21 +2094,28 @@ def phase_scenario_arm(name, results):
 
 PANDA_DRAWS = 40        # the default route's noise draws (panda_draws)
 PANDA_DRAW_SEED = 100   # their seeds: 100 to 139
+PANDA_DRAW_REL = 1e-5   # their relative Jacobian noise
+# the draws that must meet the ball check: the binomial 1% quantile of 40
+# draws at the JAX example's rate under the same noise, 150 of 200
+# (tools/arm_chaos_jax.py --rel 1e-5 --draws 200, PERF.md)
+PANDA_DRAWS_MET = 23
 
 
 def phase_panda_draws():
     """The Panda's run() at Config() on its default route (megaroll and
-    the cold megajac) under PANDA_DRAWS seeded draws of 1e-7 relative
-    Jacobian noise (noisy_jac; scenario_chaos.py's default_noise_1e-7
-    draws at the same seeds).  Prints how many meet the JAX goldens' ball
-    checks (arm_task), which is not held (ARM_TASK_ON_RUN); fails unless
+    the cold megajac) under PANDA_DRAWS seeded draws of PANDA_DRAW_REL
+    relative Jacobian noise (noisy_jac; scenario_chaos.py's
+    default_noise_1e-5 draws at the same seeds), draws that decorrelate
+    the chain.  At least PANDA_DRAWS_MET of them must meet the JAX
+    goldens' ball checks (arm_task): the port meets the task as often as
+    the JAX example does under the same noise.  Fails unless that holds,
     every draw ends healthy and launched megaroll once a linesearch chunk
     and megajac once a fresh derivative round."""
     met, draws = 0, []
     for k in range(PANDA_DRAWS):
         seed = PANDA_DRAW_SEED + k
         run = run_example(arm_example("panda"), deriv_kernel="lane",
-                          wrap=lambda s: noisy_jac(s, 1e-7, seed))
+                          wrap=lambda s: noisy_jac(s, PANDA_DRAW_REL, seed))
         task = arm_task("panda", run["states"], run["cost"], run["sols"][0])
         counts = run["timer"].counts
         launched = bool(run["megaroll"] == counts["rollout"] > 0
@@ -2090,17 +2125,22 @@ def phase_panda_draws():
                           cost=task["cost"], iterations=task["iterations"],
                           healthy=task["healthy"], launched=launched,
                           seconds=run["seconds"]))
-    ok = all(d["healthy"] and d["launched"] for d in draws)
+    ok = (all(d["healthy"] and d["launched"] for d in draws)
+          and met >= PANDA_DRAWS_MET)
     emit({"phase": "panda_draws", "ok": ok, "draws": PANDA_DRAWS,
           "seeds": [PANDA_DRAW_SEED, PANDA_DRAW_SEED + PANDA_DRAWS - 1],
-          "noise_rel": 1e-7, "met": met,
+          "noise_rel": PANDA_DRAW_REL, "met": met,
+          "met_at_least": PANDA_DRAWS_MET,
           "criterion": "every draw healthy, megaroll launches == linesearch "
                        "chunks, megajac launches == fresh-derivative rounds; "
-                       "the draws meeting the ball check (ball dy > 0.09, "
-                       "|z_end - 0.1| < 0.03, z_min > 0.08) printed",
+                       f"at least {PANDA_DRAWS_MET} draws meet the ball "
+                       "check (ball dy > 0.09, |z_end - 0.1| < 0.03, "
+                       "z_min > 0.08): the binomial 1% quantile of 40 draws "
+                       "at the JAX example's 150 of 200",
           "seconds": sum(d["seconds"] for d in draws), "by_draw": draws})
     if not ok:
-        fail("panda_draws", "a draw left its kernels or ended unhealthy")
+        fail("panda_draws", "a draw left its kernels or ended unhealthy, or "
+                            "too few draws met the ball check")
 
 
 def manipulation_cases(runs):
@@ -3408,8 +3448,9 @@ def main():
     phase_scenario_acrobot_mpc()
     phase_scenario_sqp()
     phase_riccati_routes()
-    # last: after a torch.profiler trace with CUDA activity the process's
-    # host-bound phases ran ~1.5x slower (PERF.md)
+    # last, so that a trace that slows the process again (utils.profiling
+    # releases Kineto's CUPTI hooks; the phase holds it) fails here
+    # without moving the other phases' times
     phase_profile()
     print(card)
     emit({"kernels": [results[k] for k in ("megastep", "megaroll",

@@ -863,7 +863,9 @@ __device__ void contact_row(const StepTable& T, const Layout& Y, const W& s,
     for (int a = 0; a < 3; ++a) d[a] = ca[a] - cb[a];
     const S dist = s_sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
     const S dmax = val(dist) > 1e-9f ? dist : S(1e-9f);
-    phi = (S(T.sph_r[si]) + rb) - dist;
+    // ra + rb summed in float, as the plain step and the JAX package
+    // sum the float32 table radii (an exact double sum moves phi ~1e-9)
+    phi = S(T.sph_r[si] + rb) - dist;
     for (int a = 0; a < 3; ++a) {
       n[a] = d[a] / dmax;
       pt[a] = cb[a] + (rb - 0.5f * phi) * n[a];

@@ -18,6 +18,10 @@ from typing import Any, Callable, Optional
 import torch
 from torch.func import jacfwd, vmap
 
+# A step function maps (params, x, u) -> x_next; ``params`` is any
+# structure of model data (masses, inertias, contact parameters, ...).
+StepFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
+
 
 @dataclasses.dataclass(frozen=True)
 class DiscreteSystem:
@@ -40,7 +44,7 @@ class DiscreteSystem:
             linearized at the step's own next state x_next.
     """
 
-    step_fn: Optional[Callable]
+    step_fn: Optional[StepFn]
     params: Any
     n: int
     m: int

@@ -137,6 +137,16 @@ def narrowphase_consts(C, cm: ContactModel, dtype, device):
     C.sh_s, C.sh_h = li(cm.pair_sh_s), li(cm.pair_sh_h)
     C.ss_a, C.ss_b = li(cm.pair_ss_a), li(cm.pair_ss_b)
     C.sw_s, C.sw_w = li(cm.pair_sw_s), li(cm.pair_sw_w)
+    # a sphere pair's contact distance ra + rb, summed in the tables'
+    # float32 and then cast, as the JAX package sums it: in float64 an
+    # exact sum moves phi by ~1e-9, which flips the Newton's half-step
+    # test on some Panda states and lands on another root
+    at = lambda tab, seq: tab[torch.as_tensor(list(seq), dtype=torch.long,
+                                              device=tab.device)]
+    C.ss_rsum = c(at(cm.sph_radius, cm.pair_ss_a)
+                  + at(cm.sph_radius, cm.pair_ss_b))
+    C.sw_rsum = c(at(cm.sph_radius, cm.pair_sw_s)
+                  + at(cm.ws_radius, cm.pair_sw_w))
     C.body_a, C.body_b = _contact_bodies(cm)
     Ks, ds, mus = [], [], []
     if cm.pair_sh_s:
@@ -567,22 +577,22 @@ def _narrowphase_T(cm: ContactModel, C: LaneConsts, centers, box_R_w,
 
     if cm.pair_ss_a:
         ca, cb = centers[C.ss_a], centers[C.ss_b]
-        ra, rb = C.sph_radius[C.ss_a], C.sph_radius[C.ss_b]
+        rb = C.sph_radius[C.ss_b]
         dvec = ca - cb
         dist = torch.sqrt(torch.sum(dvec * dvec, 1))
         n = dvec / torch.clamp(dist, min=1e-9)[:, None]
-        phi = (ra + rb)[:, None] - dist
+        phi = C.ss_rsum[:, None] - dist
         pnt = cb + (rb[:, None] - 0.5 * phi)[:, None] * n
         phis.append(phi); normals.append(n); points.append(pnt)
 
     if cm.pair_sw_s:
         ca = centers[C.sw_s]                             # (c, 3, B)
         cw = C.ws_pos[C.sw_w]                            # (c, 3)
-        ra, rw = C.sph_radius[C.sw_s], C.ws_radius[C.sw_w]
+        rw = C.ws_radius[C.sw_w]
         dvec = ca - cw[:, :, None]
         dist = torch.sqrt(torch.sum(dvec * dvec, 1))
         n = dvec / torch.clamp(dist, min=1e-9)[:, None]
-        phi = (ra + rw)[:, None] - dist
+        phi = C.sw_rsum[:, None] - dist
         pnt = cw[:, :, None] + (rw[:, None] - 0.5 * phi)[:, None] * n
         phis.append(phi); normals.append(n); points.append(pnt)
 
@@ -770,3 +780,12 @@ def make_lane_step(
     step_T.contact_iters = contact_iters
     step_T.force_params = force_params
     return step_T
+
+
+def lane_step_from_scalar(step: Callable) -> Callable:
+    """The lane-major twin of a per-scenario step (x (n,), u (m,)) ->
+    x_next (n,): ``torch.func.vmap`` of it over a trailing lane axis,
+    (x (n, L), u (m, L)) -> x_next (n, L).  For a step whose arithmetic
+    is not written over lanes; a multibody system has its own lane step
+    (:func:`make_lane_step`)."""
+    return torch.func.vmap(step, in_dims=-1, out_dims=-1)

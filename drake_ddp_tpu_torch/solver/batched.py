@@ -204,6 +204,44 @@ def _jac_for(system: DiscreteSystem, deriv_kernel: str, root_seed=None):
     return (system.lane_jac_root_fn if root else system.lane_jac_fn), root
 
 
+def _round_flags(cfg, state: _LoopState, failed, floor_cut):
+    """A round's regularization update and its retry and divergence
+    flags (B,), from the round's incoming state and its linesearch's
+    ``failed`` and ``floor_cut``: Levenberg regularization raised on a
+    failure and decayed toward ``cfg.reg`` on success; a failure retries
+    until reg reaches ``reg_max``, and diverges then unless the lane is
+    at an optimum.  Returns (reg_new, retry, diverged)."""
+    adaptive = cfg.reg > 0.0
+    if adaptive:
+        reg_new = torch.where(
+            failed, state.reg * cfg.reg_mult,
+            torch.clamp(state.reg / cfg.reg_mult, min=cfg.reg))
+    else:
+        reg_new = state.reg
+    # floor_cut = every remaining candidate's predicted decrease is
+    # below ls_expected_floor <= delta: convergence, not divergence.
+    # isfinite(L): a lane with no finite incumbent is not at an optimum
+    at_optimum = (((torch.sum(state.dV_coeff, dim=1) <= cfg.delta)
+                   | floor_cut) & (state.iteration > 0)
+                  & torch.isfinite(state.L))
+    exhausted = ((state.reg >= cfg.reg_max) | at_optimum
+                 | (not adaptive))
+    retry = failed & ~exhausted
+    diverged = failed & exhausted & ~at_optimum
+    return reg_new, retry, diverged
+
+
+def _lane_cond(cfg, prob: ILQRProblem, state: _LoopState) -> torch.Tensor:
+    """The stopping test: the lanes (B,) that run another round (an
+    improvement over ``delta`` or a regularization retry, below
+    ``max_iters``, not diverged, not frozen)."""
+    c = (((state.improvement > cfg.delta) | state.retry)
+         & (state.iteration < cfg.max_iters) & ~state.diverged)
+    if prob.frozen is not None:
+        c = c & ~prob.frozen
+    return c
+
+
 def solve_ilqr_batched(
     system: DiscreteSystem,
     cfg: ILQRConfig,
@@ -244,7 +282,6 @@ def solve_ilqr_batched(
                         root=root)
     backward = (parallel_backward_pass if cfg.parallel_backward
                 else _backward_pass)
-    adaptive = cfg.reg > 0.0
     iters = torch.arange(cfg.max_iters, device=dev)
 
     def forward_and_backward(state: _LoopState) -> _LoopState:
@@ -277,21 +314,8 @@ def solve_ilqr_batched(
             percent = torch.where(failed, torch.zeros_like(pct), pct)
 
         L_use = torch.where(failed, state.L, L_new)
-        if adaptive:
-            reg_new = torch.where(
-                failed, state.reg * cfg.reg_mult,
-                torch.clamp(state.reg / cfg.reg_mult, min=cfg.reg))
-        else:
-            reg_new = state.reg
-        # floor_cut = every remaining candidate's predicted decrease is
-        # below ls_expected_floor <= delta: convergence, not divergence.
-        # isfinite(L): a lane with no finite incumbent is not at an optimum
-        at_optimum = (((torch.sum(state.dV_coeff, dim=1) <= cfg.delta)
-                       | floor_cut) & started & torch.isfinite(state.L))
-        exhausted = ((state.reg >= cfg.reg_max) | at_optimum
-                     | (not adaptive))
-        retry = failed & ~exhausted
-        diverged = failed & exhausted & ~at_optimum
+        reg_new, retry, diverged = _round_flags(cfg, state, failed,
+                                                floor_cut)
 
         # inactive lanes (iteration == max_iters) write a discarded slot
         it = state.iteration.long().clamp(max=cfg.max_iters - 1)
@@ -317,13 +341,6 @@ def solve_ilqr_batched(
             iteration=state.iteration + 1, reg=reg_new, retry=retry,
             diverged=diverged, stats=stats)
 
-    def lane_cond(state: _LoopState) -> torch.Tensor:
-        c = (((state.improvement > cfg.delta) | state.retry)
-             & (state.iteration < cfg.max_iters) & ~state.diverged)
-        if prob.frozen is not None:
-            c = c & ~prob.frozen
-        return c
-
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
     stats0 = ILQRStats(
         cost=zeros(B, cfg.max_iters), eps=zeros(B, cfg.max_iters),
@@ -347,7 +364,7 @@ def solve_ilqr_batched(
         stats=stats0)
 
     while True:
-        active = lane_cond(state)
+        active = _lane_cond(cfg, prob, state)
         if not any_lane(active):
             break
         new = forward_and_backward(state)

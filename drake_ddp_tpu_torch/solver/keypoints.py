@@ -389,6 +389,45 @@ def compute_derivatives_batched(
             interpolate_stack(mask_t, bufs.fu), pct)
 
 
+def compute_derivatives(step: Callable, cfg: DerivsInterpolation,
+                        x: torch.Tensor, u: torch.Tensor):
+    """(fx, fu, percent) of one trajectory through a per-scenario step:
+    the JAX package's ``compute_derivatives``.
+
+    The keypoints of the configured method get exact Jacobians,
+    ``torch.func.jacfwd`` of ``step`` vmapped over the keypoints (at most
+    ``jac_chunk`` a call), and the steps between are interpolated, through
+    :func:`compute_derivatives_batched` at B = 1.  ``max_keypoints`` caps
+    the iterativeError bisection as there; for setInterval and
+    adaptiveJerk a mask with more keypoints than ``max_keypoints`` raises
+    ValueError (the JAX package reads zero Jacobians at the dropped
+    ones).
+
+    Args:
+        step: (x (n,), u (m,)) -> x_next (n,).
+        cfg: interpolation config (validated).
+        x: (N, n) trajectory.
+        u: (N-1, m) control tape.
+    Returns:
+        fx (N-1, n, n), fu (N-1, n, m), percent: a 0-d tensor in [0, 100].
+    """
+    from torch.func import jacfwd, vmap
+
+    jac_T = vmap(jacfwd(step, argnums=(0, 1)), in_dims=-1, out_dims=-1)
+    N = x.shape[0]
+    if (cfg.keypoint_method == SET_INTERVAL and not is_baseline(cfg)
+            and cfg.max_keypoints is not None):
+        count = int(set_interval_mask(N, cfg.minN).sum())
+        if count > cfg.max_keypoints:
+            raise ValueError(
+                f"setInterval: {count} keypoints, over the budget "
+                f"max_keypoints={cfg.max_keypoints} (the JAX package reads "
+                "zero Jacobians at the dropped ones); raise max_keypoints "
+                "or leave it unset")
+    fx, fu, pct = compute_derivatives_batched(jac_T, cfg, x[None], u[None])
+    return fx[0], fu[0], pct[0]
+
+
 def _set_interval(cfg, at_indices, x, u, xn):
     """The static schedule: interpolate straight from the compact (B, K,
     ...) keypoint stack with host-side prev/next indices and weights."""

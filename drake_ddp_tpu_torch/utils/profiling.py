@@ -57,6 +57,11 @@ class phase_timer:
         return "phase timings:\n" + "\n".join(rows)
 
 
+# Kineto's settings that tear CUPTI down when a trace stops and keep it
+# from re-arming lazily: without both, every later launch pays for it
+_CUPTI_RELEASE = ("TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT")
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None) -> Iterator[str]:
     """Capture a ``torch.profiler`` trace around a block and write it to
@@ -64,7 +69,13 @@ def trace(log_dir: Optional[str] = None) -> Iterator[str]:
     directory) as ``trace.json``, a Chrome/Perfetto trace (open it in
     ``chrome://tracing`` or ui.perfetto.dev).  Yields the directory.
     Keep traced regions short (one solve, not a whole benchmark): traces
-    are large."""
+    are large.
+
+    With a card present it sets Kineto's ``TEARDOWN_CUPTI`` and
+    ``DISABLE_CUPTI_LAZY_REINIT`` to 1 unless the caller has set them:
+    without them a trace left the process's later host-bound work slower
+    (a Panda solve 1.28x on an H100, ``trace_slowdown.py``), with them
+    it is not (0.98x), and the trace still records the card's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,6 +85,8 @@ def trace(log_dir: Optional[str] = None) -> Iterator[str]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        for key in _CUPTI_RELEASE:
+            os.environ.setdefault(key, "1")
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -91,6 +91,31 @@ def test_narrowphase_matches_jax(name):
     assert (phi > -0.01).sum() >= 2          # some rows near or in contact
 
 
+def test_narrowphase_f64_matches_jax_to_rounding():
+    """The Panda scene's contact rows in float64 (the sphere-ground and
+    the arm-ball sphere-sphere rows) equal JAX's to rounding.  A sphere
+    pair's distance ra + rb is summed in the tables' float32, as in JAX:
+    an exact float64 sum moved phi by ~1e-9, which flipped the Newton's
+    half-step test on a state of the Panda side task
+    (tests/test_torch_panda_lockstep.py) and sent the port's float64 step
+    O(1) away from JAX's."""
+    from drake_ddp_tpu.contact.geometry import narrowphase as jnarrow
+    from drake_ddp_tpu_torch.contact import narrowphase
+
+    (jmodel, jcm), (tmodel, tcm), q = _scene("panda_fr3")
+    assert tcm.pair_ss_a
+    R, p, centers = (a.astype(np.float64) for a in _poses(tmodel, tcm, q))
+    want = jax.jit(lambda *a: jnarrow(jcm, *a)[:3],
+                   compiler_options=JAX_QUICK_COMPILE)(
+        *(jnp.asarray(a) for a in (centers, R, p)))
+    got = narrowphase(tcm, *(torch.as_tensor(a) for a in (centers, R, p)))
+    for i in (0, 1, 2):                        # phi, normal, point
+        w = np.asarray(want[i], np.float64)
+        assert got[i].dtype == torch.float64
+        np.testing.assert_allclose(got[i].numpy(), w, rtol=0,
+                                   atol=1e-14 * np.abs(w).max())
+
+
 def _force_inputs(name, seed):
     """Per-contact inputs of a scene's rows: phi around the smoothing
     width, unit normals, relative velocities (a third of them slipping

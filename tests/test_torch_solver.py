@@ -152,3 +152,37 @@ def test_solve_spd_matches_jax_and_flags_indefinite():
     A[1] = -A[1]                  # indefinite: NaN for that matrix only
     out = tsolve(torch.as_tensor(A), torch.as_tensor(v))
     assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2, 3]]).all()
+
+
+def test_lane_step_from_scalar_matches_jax():
+    """``lane_step_from_scalar``, the per-scenario step vmapped over a
+    trailing lane axis, against the JAX package's wrapper on random
+    float64 lanes of the pendulum and the cart-pole, and against the
+    port's own step lane by lane; the wrapped step is a
+    ``dynamics.base.StepFn`` bound to its params."""
+    from drake_ddp_tpu.dynamics import analytic as jan
+    from drake_ddp_tpu.multibody.lanestep import (
+        lane_step_from_scalar as jwrap)
+    from drake_ddp_tpu_torch.dynamics import analytic as tan
+    from drake_ddp_tpu_torch.dynamics import base
+    from drake_ddp_tpu_torch.multibody.lanestep import (
+        lane_step_from_scalar as twrap)
+
+    assert base.StepFn.__origin__ is base.Callable.__origin__
+    rng = np.random.default_rng(11)
+    L = 7
+    for system in ("pendulum", "cart_pole"):
+        jsys = getattr(jan, f"{system}_system")(dt=0.01)
+        tsys = getattr(tan, f"{system}_system")(dt=0.01)
+        x = rng.normal(size=(tsys.n, L))
+        u = rng.normal(size=(tsys.m, L))
+        want = np.asarray(jwrap(jsys.bound_step())(jnp.asarray(x),
+                                                    jnp.asarray(u)))
+        step = tsys.bound_step()
+        got = twrap(step)(torch.as_tensor(x), torch.as_tensor(u))
+        assert got.shape == (tsys.n, L) and got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                                   atol=1e-12)
+        for i in range(L):
+            lane = step(torch.as_tensor(x[:, i]), torch.as_tensor(u[:, i]))
+            np.testing.assert_array_equal(got[:, i].numpy(), lane.numpy())
