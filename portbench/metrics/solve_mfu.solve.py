@@ -1,0 +1,9 @@
+"""solve_mfu.solve (device): the window's rollout, Jacobian and Riccati
+operations, counted from the problem's sizes, over the window at the
+card's float32 peak, in %."""
+
+from portbench.layers import step_mfu
+
+
+def read(run):
+    return step_mfu(run) if run.kind == "solve" else None
