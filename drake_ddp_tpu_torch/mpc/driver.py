@@ -35,6 +35,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     scenario_routes,
     unbatch,
 )
+from drake_ddp_tpu_torch.utils.timing import spanned
 
 
 class MPCConfig(NamedTuple):
@@ -100,6 +101,7 @@ def _sel_lane(mask, a, b):
     return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
+@spanned("mpc")
 def mpc_solve_batched(
     system: DiscreteSystem,
     cfg: ILQRConfig,
@@ -123,7 +125,8 @@ def mpc_solve_batched(
     a previous chunked call.  ``rescue_u`` ((N-1, m) or (B, N-1, m)): a
     lane whose previous resolve failed is re-seeded with this open-loop
     tape (zero gains) instead of its coasted stale policy.  ``timer``: an
-    optional PhaseTimer handed to every solve."""
+    optional PhaseTimer handed to every solve; the whole call is its
+    host-only span ``mpc``."""
     N, rs = cfg.num_steps, mpc.replan_steps
     if mpc.freeze_diverged and not mpc.policy_warm_start:
         raise ValueError(

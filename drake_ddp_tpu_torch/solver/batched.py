@@ -24,6 +24,15 @@ scenario batch as an explicit leading axis B.
   :func:`any_lane` counts them.  A single scenario (B = 1) also reads
   whether its round is a regularization retry, and skips the derivative
   call then, as the per-scenario JAX solve's ``lax.cond`` does.
+- Given a timer (:mod:`utils.timing`), the solve is the host-only span
+  ``solve``, its phases ``linesearch``, ``rollout``, ``derivs``, ``jac``
+  and ``riccati``, and each read of the loops' flag the host-only span
+  ``wait.round`` or ``wait.ls`` (the host blocked on the card).  Such a
+  read is then the lane count, in the same one synchronisation: each
+  round adds its lanes still iterating to the counter ``lanes_active``
+  and B to ``lane_slots``; each linesearch chunk adds the lanes it rolls
+  out that are active in the round and still searching to
+  ``ls_lanes_kept`` and B to ``ls_lane_slots``.
 
 Kernel choice is an explicit setting: there is no fallback between
 kernels.
@@ -51,7 +60,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     _LoopState,
 )
 from drake_ddp_tpu_torch.solver.parscan import parallel_backward_pass
-from drake_ddp_tpu_torch.utils.timing import phase
+from drake_ddp_tpu_torch.utils.timing import count, phase, span, spanned
 
 ROLLOUT_KERNELS = ("fused", "megastep", "plain")
 DERIV_KERNELS = ("megajac", "lane")
@@ -65,6 +74,28 @@ def any_lane(mask: torch.Tensor) -> bool:
 
 
 any_lane.syncs = 0
+
+
+def _lanes_left(mask, timer, wait, counters=None, keep=None) -> bool:
+    """Whether any lane of ``mask`` (B,) is set: :func:`any_lane` inside
+    the host-only span ``wait``.  With a timer and a pair of
+    ``counters``, the read is the lane count instead (still one
+    synchronisation), and a read that finds lanes adds the lanes of
+    ``mask`` (and of ``keep``) to ``counters[0]`` and B to
+    ``counters[1]`` (:func:`~drake_ddp_tpu_torch.utils.timing.count`)."""
+    with span(timer, wait):
+        if timer is None or counters is None:
+            return any_lane(mask)
+        any_lane.syncs += 1
+        if keep is None:
+            n = kept = int(mask.sum())
+        else:
+            n, kept = torch.stack((mask.sum(),
+                                   (mask & keep).sum())).tolist()
+    if n:
+        count(timer, counters[0], kept)
+        count(timer, counters[1], mask.numel())
+    return n > 0
 
 
 def _tile_c(a, C):
@@ -105,10 +136,13 @@ def _chunk_rollout_lanes(rollout, prob, state, eps_cb,
     return x_out, u_out, L, steps
 
 
-def _linesearch_batched(rollout, cfg, prob, state, timer=None):
+def _linesearch_batched(rollout, cfg, prob, state, timer=None,
+                        lanes=None):
     """Batched backtracking linesearch: the accepted eps of each lane is
     the first (largest) entry of {1, beta, beta^2, ...} whose improvement
     beats gamma * expected; lanes that have accepted freeze their carry.
+    ``lanes``: the round's active lanes (B,), for the timer's count of
+    the rolled-out lanes whose result the round keeps.
 
     Returns (eps, x, u, L, improvement, n_iters, failed, floor_cut)."""
     B = state.x_bar.shape[0]
@@ -156,7 +190,8 @@ def _linesearch_batched(rollout, cfg, prob, state, timer=None):
     k = 0
     while True:
         active = ~found & (eps_start >= cfg.eps_min) & allowed(eps_start)
-        if not any_lane(active):
+        if not _lanes_left(active, timer, "wait.ls",
+                           ("ls_lanes_kept", "ls_lane_slots"), lanes):
             break
         found_c, idx, eps_c, x_c, u_c, L_c, imp_c = chunk(eps_start)
         n_new = (k * C + idx + 1).to(torch.int32)
@@ -242,6 +277,7 @@ def _lane_cond(cfg, prob: ILQRProblem, state: _LoopState) -> torch.Tensor:
     return c
 
 
+@spanned("solve")
 def solve_ilqr_batched(
     system: DiscreteSystem,
     cfg: ILQRConfig,
@@ -264,8 +300,9 @@ def solve_ilqr_batched(
     (``lane_jac_fn``), None for the root-seeded one when the system has
     it, else the cold one.
     ``timer``: optional :class:`~drake_ddp_tpu_torch.utils.timing.
-    PhaseTimer` that gets the linesearch (with its rollouts), jac,
-    derivs and riccati phases."""
+    PhaseTimer` that gets the solve span, the linesearch (with its
+    rollouts), jac, derivs and riccati phases, the wait spans and the
+    lane counters (see the module's docstring)."""
     cfg.derivs.validate()
     rollout = _rollout_for(system, rollout_kernel)
     jac, root = _jac_for(system, deriv_kernel, root_seed)
@@ -284,11 +321,11 @@ def solve_ilqr_batched(
                 else _backward_pass)
     iters = torch.arange(cfg.max_iters, device=dev)
 
-    def forward_and_backward(state: _LoopState) -> _LoopState:
+    def forward_and_backward(state: _LoopState, active) -> _LoopState:
         with phase(timer, "linesearch"):
             (eps, x, u, L_new, imp, ls_iters, failed,
              floor_cut) = _linesearch_batched(rollout, cfg, prob, state,
-                                              timer)
+                                              timer, active)
 
         selb = lambda flag, a, b: torch.where(
             flag.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
@@ -303,7 +340,7 @@ def solve_ilqr_batched(
         # bookkeeping follows the derivative launch, so that on the card
         # the host does it while the Jacobian kernels run.
         cache_ok = failed & started
-        if B == 1 and not any_lane(~cache_ok):
+        if B == 1 and not _lanes_left(~cache_ok, timer, "wait.round"):
             fx, fu = state.fx, state.fu
             percent = torch.zeros_like(state.L)
         else:
@@ -365,9 +402,10 @@ def solve_ilqr_batched(
 
     while True:
         active = _lane_cond(cfg, prob, state)
-        if not any_lane(active):
+        if not _lanes_left(active, timer, "wait.round",
+                           ("lanes_active", "lane_slots")):
             break
-        new = forward_and_backward(state)
+        new = forward_and_backward(state, active)
         if B == 1:
             # the one lane is active: freezing nothing, the select is `new`
             state = new

@@ -40,7 +40,7 @@ from drake_ddp_tpu_torch.solver.ilqr import (
     ILQRSolution,
     solve_ilqr,
 )
-from drake_ddp_tpu_torch.utils.timing import phase
+from drake_ddp_tpu_torch.utils.timing import count, phase, span
 
 # the solver's phase names that close a round's record, by PhaseTimes field
 _ROUND_PHASES = {"linesearch": "forward", "derivs": "derivs",
@@ -71,8 +71,8 @@ class RoundTimer:
     """The solver's phase timer (``timer=`` of the solve functions) that
     keeps one record per iLQR round of its linesearch, derivative and
     Riccati phases.  Every phase, these and the nested ones (rollout,
-    jac), also goes to ``inner``, an optional
-    :class:`~drake_ddp_tpu_torch.utils.timing.PhaseTimer`."""
+    jac), and every host span and counter also goes to ``inner``, an
+    optional :class:`~drake_ddp_tpu_torch.utils.timing.PhaseTimer`."""
 
     def __init__(self, device, inner=None):
         self.cuda = torch.device(device).type == "cuda"
@@ -100,6 +100,12 @@ class RoundTimer:
                 yield
             finally:
                 record[_ROUND_PHASES[name]] = (start, self._mark())
+
+    def span(self, name: str):
+        return span(self.inner, name)
+
+    def count(self, name: str, k: int) -> None:
+        count(self.inner, name, k)
 
     def times(self) -> PhaseTimes:
         """The records as seconds (on the card: one synchronisation)."""

@@ -1,8 +1,8 @@
 """The port's phase-timed solve and profiling helpers against the JAX
 package: ``solver/profile.py`` (``profiled_solve``,
 ``profiled_solve_batched``, ``PhaseTimes``, ``format_phase_table``), the
-class API's ``SolveProfiled`` and ``utils/profiling.py`` (``phase_timer``,
-``trace``), on the CPU.
+class API's ``SolveProfiled``, ``utils/timing.PhaseTimer``'s host spans
+and counters and ``utils/profiling.trace``, on the CPU.
 
 Tolerances: the profiled solves run the port's ordinary solves, so they
 give the same bits; against JAX, the pendulum (N 80, 10 iterations, the
@@ -190,19 +190,27 @@ def test_solve_profiled_returns_the_five_tuple(capsys):
 
 
 def test_phase_timer_and_trace(tmp_path):
-    """phase_timer sums named spans and counts them; trace writes a
-    Chrome trace of the block that names its operators."""
-    from drake_ddp_tpu_torch.utils.profiling import phase_timer, trace
+    """PhaseTimer sums named host spans (phases and host-only spans alike)
+    under ``host:<name>``, the phases' events (where it records them, on
+    a host with a card) under their names, and counts spans and counters
+    in ``counts``; trace writes a Chrome trace of the block that names
+    its operators."""
+    from drake_ddp_tpu_torch.utils.profiling import trace
+    from drake_ddp_tpu_torch.utils.timing import PhaseTimer, span
 
-    t = phase_timer()
+    t = PhaseTimer()
+    assert t.cuda == torch.cuda.is_available()
     for _ in range(2):
-        with t("a"):
+        with t.phase("a"):
             pass
-    with t("b"):
+    with span(t, "b"):
         torch.ones(3).sum()
-    assert t.counts == {"a": 2, "b": 1}
-    assert set(t.report()) == {"a", "b"} and min(t.totals.values()) >= 0
-    assert "phase timings:" in t.pretty()
+    t.count("lanes", 3)
+    t.count("lanes", 2)
+    assert t.counts == {"a": 2, "b": 1, "lanes": 5}
+    totals = t.totals_ms()
+    assert set(totals) == {"host:a", "host:b"} | ({"a"} if t.cuda else set())
+    assert min(totals.values()) >= 0
 
     with trace(str(tmp_path / "tr")) as log_dir:
         torch.ones(64, 64) @ torch.ones(64, 64)
